@@ -1,0 +1,199 @@
+"""Dense decoder-only transformer with KV-cache prefill/decode and
+sliding-window support.
+
+Used directly by: llama3.2-1b, phi3-mini, qwen3, mistral-large-123b and
+chameleon-34b (early-fusion VLM: image tokens are ordinary vocab ids). The
+MoE FFN of deepseek-moe-16b / granite-moe-1b is not ported yet (ROADMAP M6).
+
+Layers are per-layer modules in an ``nn.ModuleList`` in place of
+``repro``'s stacked, vmap-initialised layer pytree; layer ``i`` holds slice
+``i`` of each stacked weight (see :mod:`repro_torch.models.convert`). The
+KV cache is preallocated and written in place: prefill fills the prompt's
+rows, each decode step one row a sequence, and ``lengths`` advances in place.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig
+from .attention import Attention, decode_attention_step, prefill_attention
+from .layers import normal_init, rms_norm, swiglu, unembed
+
+
+class SwiGLU(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype, device: torch.device) -> None:
+        super().__init__()
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                                requires_grad=False)
+
+        self.w_gate = param(d_model, d_ff)
+        self.w_up = param(d_model, d_ff)
+        self.w_down = param(d_ff, d_model)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        d_model, d_ff = self.w_gate.shape
+        for w, scale in ((self.w_gate, d_model**-0.5), (self.w_up, d_model**-0.5),
+                         (self.w_down, d_ff**-0.5)):
+            w.copy_(normal_init(tuple(w.shape), scale, w.dtype, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return swiglu(x, self.w_gate, self.w_up, self.w_down)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ArchConfig, device: torch.device) -> None:
+        super().__init__()
+        dt = cfg.torch_dtype
+        self.ln1 = nn.Parameter(torch.empty(cfg.d_model, dtype=dt, device=device),
+                                requires_grad=False)
+        self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                              cfg.qk_norm, dt, device)
+        self.ln2 = nn.Parameter(torch.empty(cfg.d_model, dtype=dt, device=device),
+                                requires_grad=False)
+        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, dt, device)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        self.ln1.fill_(1.0)
+        self.attn.init(generator)
+        self.ln2.fill_(1.0)
+        self.mlp.init(generator)
+
+
+class Transformer(nn.Module):
+    """The parameters of one dense model (``repro``'s ``params`` dict)."""
+
+    def __init__(self, cfg: ArchConfig, device: torch.device) -> None:
+        super().__init__()
+        dt = cfg.torch_dtype
+        self.cfg = cfg
+        self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model, dtype=dt, device=device),
+                                  requires_grad=False)
+        self.layers = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
+        self.final_norm = nn.Parameter(torch.empty(cfg.d_model, dtype=dt, device=device),
+                                       requires_grad=False)
+        self.unembed = (
+            None if cfg.tie_embeddings
+            else nn.Parameter(torch.empty(cfg.d_model, cfg.vocab, dtype=dt, device=device),
+                              requires_grad=False)
+        )
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "Transformer":
+        cfg = self.cfg
+        self.embed.copy_(normal_init((cfg.vocab, cfg.d_model), 1.0, self.embed.dtype, generator))
+        for layer in self.layers:
+            layer.init(generator)
+        self.final_norm.fill_(1.0)
+        if self.unembed is not None:
+            self.unembed.copy_(normal_init((cfg.d_model, cfg.vocab), cfg.d_model**-0.5,
+                                           self.unembed.dtype, generator))
+        return self
+
+    def out_proj(self) -> torch.Tensor:
+        return self.unembed if self.unembed is not None else self.embed.T
+
+
+# ---------------------------------------------------------------------------
+# Layer application
+# ---------------------------------------------------------------------------
+
+
+def _layer_prefill(cfg: ArchConfig, p: Block, x, positions, window, use_kernel):
+    h, (k, v) = prefill_attention(
+        p.attn, rms_norm(x, p.ln1, cfg.norm_eps), positions,
+        rope_theta=cfg.rope_theta, eps=cfg.norm_eps, window=window, use_kernel=use_kernel,
+    )
+    x = x + h
+    return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps)), (k, v)
+
+
+def _layer_decode(cfg: ArchConfig, p: Block, x, k_cache, v_cache, lengths, window, use_kernel):
+    h = decode_attention_step(
+        p.attn, rms_norm(x, p.ln1, cfg.norm_eps), k_cache, v_cache, lengths,
+        rope_theta=cfg.rope_theta, eps=cfg.norm_eps, window=window, use_kernel=use_kernel,
+    )
+    x = x + h
+    return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
+
+
+# ---------------------------------------------------------------------------
+# Public model functions
+# ---------------------------------------------------------------------------
+
+
+def _embed(params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    return params.embed[tokens.long()]
+
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    B, S = tokens.shape
+    return torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+
+
+def forward(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, *,
+            use_kernel: bool = True) -> torch.Tensor:
+    """Full forward pass over ``tokens`` (B, S). Returns logits (B, S, V)."""
+    window = cfg.sliding_window
+    x = _embed(params, tokens)
+    positions = _positions(tokens)
+    for p in params.layers:
+        x, _ = _layer_prefill(cfg, p, x, positions, window, use_kernel)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    return unembed(x, params.out_proj())
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
+               device: torch.device) -> dict[str, torch.Tensor]:
+    """KV cache. With a sliding window, the cache is a ring of size window."""
+    window = cfg.sliding_window
+    S = min(max_len, window) if window is not None else max_len
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, S, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+        "lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def prefill(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, cache, *,
+            use_kernel: bool = True):
+    """Run the prompt through the stack, filling the cache in place. Returns
+    (last-token logits (B, 1, V), cache)."""
+    B, S = tokens.shape
+    window = cfg.sliding_window
+    S_c = cache["k"].shape[3]
+    x = _embed(params, tokens)
+    positions = _positions(tokens)
+    for i, p in enumerate(params.layers):
+        x, (k, v) = _layer_prefill(cfg, p, x, positions, window, use_kernel)
+        if window is not None and S > S_c:
+            # keep the last `window` positions; ring alignment: slot = pos % window
+            shift = (S - S_c) % S_c
+            k = torch.roll(k[:, :, -S_c:], shifts=shift, dims=2)
+            v = torch.roll(v[:, :, -S_c:], shifts=shift, dims=2)
+        cache["k"][i, :, :, : k.shape[2]] = k
+        cache["v"][i, :, :, : v.shape[2]] = v
+    x = rms_norm(x[:, -1:, :], params.final_norm, cfg.norm_eps)
+    logits = unembed(x, params.out_proj())
+    cache["lengths"].fill_(S)
+    return logits, cache
+
+
+def decode_step(cfg: ArchConfig, params: Transformer, cache, tokens: torch.Tensor, *,
+                use_kernel: bool = True):
+    """One greedy decode step. tokens: (B, 1) int32 — the current token.
+    Returns (logits (B,1,V), cache updated in place)."""
+    window = cfg.sliding_window
+    x = _embed(params, tokens)
+    lengths = cache["lengths"]
+    for i, p in enumerate(params.layers):
+        x = _layer_decode(cfg, p, x, cache["k"][i], cache["v"][i], lengths, window, use_kernel)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    logits = unembed(x, params.out_proj())
+    lengths.add_(1)
+    return logits, cache
