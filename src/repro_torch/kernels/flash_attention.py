@@ -6,7 +6,9 @@ Replaces the Pallas TPU kernel
 laid out: one CTA per (batch * q-head, 64-row q tile), a loop over 64-row kv
 tiles that stops at the causal diagonal, GQA by kv head ``h // group``, an f32
 online softmax, and ragged q and kv tails masked in the kernel, so unpadded
-serving prompts never fall back.
+serving prompts never fall back. bf16 runs QK^T and PV on the tensor cores
+(``wgmma``, P rounded to bf16 as the Pallas kernel rounds it, K and V through
+a ``cp.async`` ring); f32 stays IEEE FFMA.
 
 :func:`flash_attention` launches the kernel and takes CUDA tensors only; its
 plain version is :func:`plain` (``ref.attention_ref``). The causal mask is
@@ -50,6 +52,9 @@ def flash_attention(
         raise ValueError(f"causal attention needs q_seq <= kv_seq, got {q_seq} > {kv_seq}")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention kernel takes contiguous tensors")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the bf16 flash_attention kernel copies 16-byte rows: "
+                         "q, k and v must start 16-byte aligned")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q)

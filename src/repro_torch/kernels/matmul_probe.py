@@ -2,9 +2,11 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/matmul_probe.py::matmul``.
 The CUDA source, ``csrc/matmul_probe.cu``, says what bounds it on the H100
-and how it is laid out: 64x64 output tiles staged through shared memory
-along K, f32 accumulators in registers, f32 inputs in IEEE FFMA (never TF32),
-and the ragged M, N and K edges masked in the kernel, so no caller pads.
+and how it is laid out: for f32, 64x32 output tiles (128 CTAs at the probe's
+512^3) fed by a 3-stage ``cp.async`` ring along K, 4x4 f32 accumulators a
+thread in IEEE FFMA (never TF32), one thread summing each output in order of
+k (repeated calls are bitwise equal); the ragged M, N and K edges are masked
+in the kernel, so no caller pads.
 
 :func:`matmul` launches the kernel and takes CUDA tensors only; its plain
 version is :func:`plain` (``ref.matmul_ref``). The dispatcher,

@@ -6,10 +6,15 @@ on a machine with a card and without JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Each kernel is held against its plain PyTorch version on the same inputs.
-Tolerances: f32 2e-3 (rtol and atol; matmul atol x10, as test_kernels.py:
-the two sides sum in different orders), bf16 5e-2 (8 mantissa bits). TF32
-is off for the plain side, so f32 products there are IEEE f32.
+Each kernel is held against its plain PyTorch version on the same inputs,
+and called twice to show that it returns bitwise the same output.
+Tolerances (rtol = atol), as in chip_smoke.py: f32 2e-3 (matmul atol x10, as
+test_kernels.py: the two sides sum in different orders). bf16 flash 3.125e-2:
+the kernel rounds P to bf16 before PV, as the Pallas kernel does, and the
+plain version does not; its largest error on the card, 1.5625e-2, is one
+bf16 ulp at |out| in [2, 4), and the tolerance is twice that. bf16 decode
+2e-2. bf16 matmul 5e-2 (8 mantissa bits over a K-long sum). TF32 is off for
+the plain side, so f32 products there are IEEE f32.
 """
 import numpy as np
 import pytest
@@ -17,7 +22,11 @@ import torch
 
 from repro_torch.kernels import ops, ref
 
-TOL = {"float32": 2e-3, "bfloat16": 5e-2}
+TOL = {
+    "matmul": {"float32": 2e-3, "bfloat16": 5e-2},
+    "flash_attention": {"float32": 2e-3, "bfloat16": 3.125e-2},
+    "decode_attention": {"float32": 2e-3, "bfloat16": 2e-2},
+}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 pytestmark = pytest.mark.cuda
@@ -40,27 +49,46 @@ def _rand(shape, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m,k,n", [(512, 512, 512), (256, 1024, 256), (100, 300, 77)])
+@pytest.mark.parametrize("m,k,n", [
+    (512, 512, 512), (256, 1024, 256),
+    (100, 300, 77),   # B's rows 308 bytes: 4-byte copies for B
+    (1, 512, 512),    # one row of A
+    (512, 1, 512),    # K = 1: A's rows 4 bytes
+])
 def test_matmul_kernel_matches_plain(m, k, n, dtype):
     a, b = _rand((m, k), dtype, 0), _rand((k, n), dtype, 1)
-    tol = TOL[dtype]
-    torch.testing.assert_close(ops.matmul(a, b).float(), ref.matmul_ref(a, b).float(),
-                               rtol=tol, atol=tol * 10)
+    tol = TOL["matmul"][dtype]
+    out = ops.matmul(a, b)
+    torch.testing.assert_close(out.float(), ref.matmul_ref(a, b).float(), rtol=tol, atol=tol * 10)
+    assert torch.equal(ops.matmul(a, b), out)
+
+
+# (batch, q_heads, kv_heads, q_seq, kv_seq, d)
+FLASH_SHAPES = [
+    (1, 4, 4, 128, 128, 64), (2, 8, 2, 256, 256, 64), (2, 4, 1, 128, 128, 128),
+    (1, 32, 8, 77, 77, 64), (1, 8, 2, 200, 200, 96),
+    # the edges of the bf16 body: one row, a partial tile, one tile, one
+    # past it, the longest serving prompt; GQA 32:8 and 4:1 at batch 2
+    *[(batch, qh, kvh, s, s, d)
+      for batch, qh, kvh in ((1, 32, 8), (2, 8, 2))
+      for s in (1, 15, 64, 65, 250)
+      for d in (64, 96, 128)],
+    # fewer queries than keys: the causal mask is end-aligned
+    (1, 32, 8, 65, 250, 64), (2, 8, 2, 1, 200, 128), (1, 8, 2, 100, 129, 96),
+]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("batch,qh,kvh,seq,d", [
-    (1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (2, 4, 1, 128, 128),
-    (1, 32, 8, 77, 64), (1, 8, 2, 200, 96),
-])
+@pytest.mark.parametrize("batch,qh,kvh,q_seq,kv_seq,d", FLASH_SHAPES)
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_kernel_matches_plain(batch, qh, kvh, seq, d, causal, dtype):
-    q = _rand((batch, qh, seq, d), dtype, 0)
-    k, v = _rand((batch, kvh, seq, d), dtype, 1), _rand((batch, kvh, seq, d), dtype, 2)
-    tol = TOL[dtype]
-    torch.testing.assert_close(ops.flash_attention(q, k, v, causal=causal).float(),
-                               ref.attention_ref(q, k, v, causal=causal).float(),
+def test_flash_kernel_matches_plain(batch, qh, kvh, q_seq, kv_seq, d, causal, dtype):
+    q = _rand((batch, qh, q_seq, d), dtype, 0)
+    k, v = _rand((batch, kvh, kv_seq, d), dtype, 1), _rand((batch, kvh, kv_seq, d), dtype, 2)
+    tol = TOL["flash_attention"][dtype]
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.attention_ref(q, k, v, causal=causal).float(),
                                rtol=tol, atol=tol)
+    assert torch.equal(ops.flash_attention(q, k, v, causal=causal), out)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -73,7 +101,7 @@ def test_decode_kernel_matches_plain(batch, qh, kvh, S, d, dtype):
     lengths = np.random.RandomState(3).randint(1, S + 1, size=batch)
     lengths[-1] = 1  # a length-1 row: only the first block contributes
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    tol = TOL[dtype]
+    tol = TOL["decode_attention"][dtype]
     torch.testing.assert_close(ops.decode_attention(q, k, v, lens).float(),
                                ref.decode_attention_ref(q, k, v, lens).float(),
                                rtol=tol, atol=tol)
@@ -131,3 +159,10 @@ def test_engine_and_probe_default_to_the_card():
     assert [r.tokens.shape for r in res] == [(5,)] * 3
     assert min(ops.launches.values()) > 0
     assert sum(ops.plain.values()) == 0
+
+
+def test_flash_kernel_refuses_misaligned_bf16():
+    """The bf16 body copies 16-byte rows; a view that starts mid-row is refused."""
+    q = _rand((1, 2, 65, 64), "bfloat16", 0).flatten()[1:1 + 2 * 64 * 64].view(1, 2, 64, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(q, q, q)
