@@ -23,7 +23,9 @@ Run from the root of a checkout. It imports ``src/repro_torch`` (never
    the serving weights, and holds the logits to ``BF16_LOGIT_LIMIT``;
 6. times each kernel (CUDA graphs of repeated launches, timed with CUDA
    events) beside its bound, its plain version and the PyTorch library call
-   that computes the same function, and each request's prefill and decode.
+   that computes the same function; K3 also over a 4000-key prefix, with the
+   cache warm and cold in L2, and at length 0; then each request's prefill
+   and decode.
 
 It exits non-zero, printing no result, if there is no CUDA device or any
 phase fails. Its last two lines are the card's ``nvidia-smi`` name and power
@@ -207,16 +209,22 @@ def check_kernels(main_shapes, failures) -> dict[str, float]:
         n_cases += 1
         if dtype == torch.bfloat16:
             main_err["flash_attention"] = err
-        # K3: random lengths in [1, S] with a length-1 row; zeros at length 0
+        # K3: random lengths in [1, S] with a length-1 row, or the lengths
+        # given; then the edges of tests/test_torch_kernels_cuda.py (group 16,
+        # a long prefix, fewer keys than splits, per-batch lengths that
+        # differ); zeros at length 0
         rs = np.random.RandomState(8)
-        for b_, qh, kvh, s, d in ((2, 4, 2, 512, 64), (1, 8, 8, 1024, 128), (3, 4, 1, 256, 64),
-                                  (2, 32, 8, 300, 96), main_shapes["decode"]):
+        for b_, qh, kvh, s, d, given in (
+                (2, 4, 2, 512, 64, None), (1, 8, 8, 1024, 128, None), (3, 4, 1, 256, 64, None),
+                (2, 32, 8, 300, 96, None), (*main_shapes["decode"], [main_shapes["decode_valid"]]),
+                (1, 16, 1, 2048, 128, None), (1, 32, 8, 4096, 64, [4000]),
+                (2, 32, 8, 512, 64, [3, 20]), (4, 8, 2, 300, 64, [300, 17, 1, 150])):
             q, k, v = rand((b_, qh, 1, d), dtype, 9), rand((b_, kvh, s, d), dtype, 10), rand((b_, kvh, s, d), dtype, 11)
             lengths = rs.randint(1, s + 1, size=b_)
             if b_ > 1:
                 lengths[-1] = 1
-            if (b_, qh, kvh, s, d) == main_shapes["decode"]:
-                lengths[:] = main_shapes["decode_valid"]
+            if given is not None:
+                lengths = np.asarray(given)
             lens = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
             err = compare(f"decode {dtype} {(b_, qh, kvh, s, d)} lengths={lengths.tolist()}",
                           lambda: decode_attention(q, k, v, lens),
@@ -401,6 +409,42 @@ def time_kernels(main_shapes, main_err, launches, card_str):
                  graph_ms(lambda: ref.decode_attention_ref(qd, kc, vc, lens)),
                  graph_ms(lambda: F.scaled_dot_product_attention(qd, kc, vc, attn_mask=mask,
                                                                  enable_gqa=True)), bms, by))
+    # K3 over a long prefix, beside the main row (not in the kernels line)
+    cache, valid = 4096, 4000
+    kc, vc = rand((bq, kvh, cache, d), torch.bfloat16, 12), rand((bq, kvh, cache, d), torch.bfloat16, 13)
+    lens = torch.full((bq,), valid, dtype=torch.int32, device=DEVICE)
+    mask = (torch.arange(cache, device=DEVICE) < valid)[None, None, None, :]
+    lbms, lby = bound(2 * (2 * bq * kvh * valid * d + 2 * bq * qh * d) + 4 * bq,
+                      4 * d * bq * qh * valid, torch.bfloat16)
+    long_ms = graph_ms(lambda: decode_attention(qd, kc, vc, lens))
+    long_plain = graph_ms(lambda: ref.decode_attention_ref(qd, kc, vc, lens))
+    long_lib = graph_ms(lambda: F.scaled_dot_product_attention(qd, kc, vc, attn_mask=mask,
+                                                               enable_gqa=True))
+    # the same with the cache cold in L2, as a decode step finds it: eight
+    # caches (67 MB, more than the 50 MB L2) taken in turn
+    caches = [(rand((bq, kvh, cache, d), torch.bfloat16, 20 + 2 * i),
+               rand((bq, kvh, cache, d), torch.bfloat16, 21 + 2 * i)) for i in range(8)]
+    turn = iter(range(1 << 30))
+
+    def cold(fn):
+        return lambda: fn(*caches[next(turn) % len(caches)])
+    cold_ms = graph_ms(cold(lambda kc_, vc_: decode_attention(qd, kc_, vc_, lens)), calls=24)
+    cold_lib = graph_ms(cold(lambda kc_, vc_: F.scaled_dot_product_attention(
+        qd, kc_, vc_, attn_mask=mask, enable_gqa=True)), calls=24)
+    print(f"[6] decode_attention long q({bq},{qh},1,{d}) cache({bq},{kvh},{cache},{d}) valid "
+          f"{valid} bf16: kernel {long_ms:.5f} ms | bound {lbms:.5f} ms ({lby}) | plain "
+          f"{long_plain:.5f} ms | library {long_lib:.5f} ms SDPA + mask | L2-cold (8 caches "
+          f"in turn): kernel {cold_ms:.5f} ms, library {cold_lib:.5f} ms ({card_str})")
+    del kc, vc, caches
+    # what a call costs with no keys to read (length 0 at the main shape),
+    # beside the least a captured kernel costs (one one-element add)
+    kc, vc = rand((bq, kvh, main_shapes["decode"][3], d), torch.bfloat16, 10), rand(
+        (bq, kvh, main_shapes["decode"][3], d), torch.bfloat16, 11)
+    zero = torch.zeros((bq,), dtype=torch.int32, device=DEVICE)
+    one = torch.zeros(1, device=DEVICE)
+    print(f"[6] decode_attention fixed cost: length 0 at the main shape "
+          f"{graph_ms(lambda: decode_attention(qd, kc, vc, zero)):.5f} ms | a one-element add "
+          f"{graph_ms(lambda: one.add_(1)):.5f} ms ({card_str})")
     out = []
     for name, shape, ms, plain_ms, lib_ms, bms, by in rows:
         print(f"[6] {name:16s} {shape}: kernel {ms:.5f} ms | bound {bms:.5f} ms ({by}) | "

@@ -129,7 +129,7 @@ _SIGNATURES = {
     ),
     "decode_attention": (
         "repro_decode_attention",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     ),
 }
 

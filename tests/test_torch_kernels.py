@@ -19,6 +19,7 @@ from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.matmul_probe import matmul as pallas_matmul
+from repro_torch.kernels import decode_attention as kd
 from repro_torch.kernels import ops, ref
 
 TOL = {"float32": 2e-3, "bfloat16": 5e-2}
@@ -162,6 +163,94 @@ def test_decode_length_zero_difference_is_pinned():
     np.testing.assert_allclose(plain[0, :, 0].numpy(), vt[0].mean(dim=1).numpy(),
                                rtol=1e-5, atol=1e-5)
     _close(plain, jref.decode_attention_ref(qj, kj, vj, jnp.asarray(zero)), 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA decode kernel's split plan, on the CPU (no kernel runs here)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("batch,kvh,S", [(1, 8, 512), (1, 8, 300), (2, 2, 4096), (1, 1, 1024),
+                                         (4, 8, 16), (64, 8, 512)])
+def test_decode_split_plan_covers_prefix_once(batch, kvh, S):
+    """Each share of the valid prefix is a KEY_GRAN multiple (the last may be
+    cut by the prefix); together they cover [0, len) once, in split order."""
+    splits = kd.n_splits(batch, kvh, S)
+    assert 1 <= splits <= kd.MAX_SPLITS
+    assert splits <= -(-S // kd.KEY_GRAN)
+    for length in sorted({0, 1, splits - 1, 266, S, S + 5, -3}):
+        n = max(0, min(length, S))
+        ranges = [kd.split_range(length, S, splits, s) for s in range(splits)]
+        covered = []
+        for start, end in ranges:
+            assert 0 <= start <= end <= n
+            covered.extend(range(start, end))
+        assert covered == list(range(n))
+        sizes = [end - start for start, end in ranges if end > start]
+        assert all(size % kd.KEY_GRAN == 0 for size in sizes[:-1])
+
+
+def test_decode_n_splits_fills_the_card_from_shapes_only():
+    assert kd.SMS <= kd.n_splits(1, 8, 4096) * 8 <= 2 * kd.SMS  # a long cache at batch 1
+    assert kd.n_splits(1, 8, 512) == 512 // kd.KEY_GRAN  # llama3.2-1b serving: a share a KEY_GRAN
+    assert kd.n_splits(64, 8, 512) == 1
+    assert kd.n_splits(1, 1, 16) == 1  # less than one KEY_GRAN share of the cache
+    assert kd.n_splits(1, 1, 1 << 20) == kd.MAX_SPLITS
+
+
+def _split_merge(q, k, v, lengths):
+    """The kernel's arithmetic in f32 on the CPU: per-split m, l and PV sums
+    over split_range's keys (empty splits give m = -inf, l = 0), merged in
+    split order, zeros where the prefix is empty."""
+    batch, qh, _, d = q.shape
+    _, kvh, S, _ = k.shape
+    group = qh // kvh
+    splits = kd.n_splits(batch, kvh, S)
+    qg = q.float().reshape(batch, kvh, group, d)
+    out = torch.zeros(batch, kvh, group, d)
+    for b in range(batch):
+        for h in range(kvh):
+            parts = []
+            for s in range(splits):
+                start, end = kd.split_range(int(lengths[b]), S, splits, s)
+                if start == end:
+                    parts.append((torch.full((group,), -torch.inf), torch.zeros(group), None))
+                    continue
+                x = qg[b, h] @ k[b, h, start:end].float().T / np.sqrt(d)
+                m = x.max(dim=1).values
+                p = torch.exp(x - m[:, None])
+                parts.append((m, p.sum(dim=1), p @ v[b, h, start:end].float()))
+            mx = torch.stack([m for m, _, _ in parts]).max(dim=0).values
+            total, acc = torch.zeros(group), torch.zeros(group, d)
+            for m, l, a in parts:
+                if a is None:
+                    continue
+                f = torch.exp(m - mx)
+                total += l * f
+                acc += a * f[:, None]
+            out[b, h] = acc / total.clamp_min(1e-20)[:, None]
+    return out.reshape(batch, qh, 1, d)
+
+
+@pytest.mark.parametrize("batch,qh,kvh,S,d,block_k,lengths", [
+    (2, 4, 2, 512, 64, 256, [266, 1]),
+    (3, 4, 1, 256, 64, 64, [0, 1, 3]),       # length 0 gives zeros
+    (1, 8, 2, 300, 64, 100, [299]),          # S not a multiple of the share
+    (1, 4, 1, 1024, 64, 256, [5]),           # fewer keys than splits
+])
+def test_decode_split_merge_matches_pallas_and_oracle(batch, qh, kvh, S, d, block_k, lengths):
+    qj, qt = _both(_np((batch, qh, 1, d), 10), "float32")
+    kj, kt = _both(_np((batch, kvh, S, d), 11), "float32")
+    vj, vt = _both(_np((batch, kvh, S, d), 12), "float32")
+    lens = np.asarray(lengths, np.int32)
+    out = _split_merge(qt, kt, vt, lens)
+    pallas = np.asarray(pallas_decode(qj, kj, vj, jnp.asarray(lens), block_k=block_k,
+                                      interpret=True), np.float32)
+    np.testing.assert_allclose(out.numpy(), pallas, rtol=2e-3, atol=2e-3)
+    oracle = np.asarray(jref.decode_attention_ref(qj, kj, vj, jnp.asarray(lens)), np.float32)
+    live = lens > 0  # the oracle gives the mean of V at length 0
+    np.testing.assert_allclose(out.numpy()[live], oracle[live], rtol=2e-3, atol=2e-3)
+    assert np.all(out.numpy()[~live] == 0.0)
 
 
 # ---------------------------------------------------------------------------

@@ -91,20 +91,56 @@ def test_flash_kernel_matches_plain(batch, qh, kvh, q_seq, kv_seq, d, causal, dt
     assert torch.equal(ops.flash_attention(q, k, v, causal=causal), out)
 
 
+# (batch, q_heads, kv_heads, S, d, lengths); lengths None: random in [1, S], the last 1
+DECODE_CASES = [
+    (2, 4, 2, 512, 64, None), (1, 8, 8, 1024, 128, None), (3, 4, 1, 256, 64, None),
+    (1, 32, 8, 300, 96, None),
+    (1, 16, 1, 2048, 128, None),          # group 16
+    (1, 32, 8, 4096, 64, [4000]),         # a long prefix: several tiles a split
+    (2, 32, 8, 512, 64, [3, 20]),         # fewer keys than splits: most splits empty
+    (4, 8, 2, 300, 64, [300, 17, 1, 150]),  # per-batch lengths that differ
+]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("batch,qh,kvh,S,d", [
-    (2, 4, 2, 512, 64), (1, 8, 8, 1024, 128), (3, 4, 1, 256, 64), (1, 32, 8, 300, 96),
-])
-def test_decode_kernel_matches_plain(batch, qh, kvh, S, d, dtype):
+@pytest.mark.parametrize("batch,qh,kvh,S,d,lengths", DECODE_CASES)
+def test_decode_kernel_matches_plain(batch, qh, kvh, S, d, lengths, dtype):
     q = _rand((batch, qh, 1, d), dtype, 0)
     k, v = _rand((batch, kvh, S, d), dtype, 1), _rand((batch, kvh, S, d), dtype, 2)
-    lengths = np.random.RandomState(3).randint(1, S + 1, size=batch)
-    lengths[-1] = 1  # a length-1 row: only the first block contributes
+    if lengths is None:
+        lengths = np.random.RandomState(3).randint(1, S + 1, size=batch)
+        lengths[-1] = 1  # a length-1 row: only the first block contributes
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     tol = TOL["decode_attention"][dtype]
-    torch.testing.assert_close(ops.decode_attention(q, k, v, lens).float(),
-                               ref.decode_attention_ref(q, k, v, lens).float(),
+    out = ops.decode_attention(q, k, v, lens)
+    torch.testing.assert_close(out.float(), ref.decode_attention_ref(q, k, v, lens).float(),
                                rtol=tol, atol=tol)
+    assert torch.equal(ops.decode_attention(q, k, v, lens), out)
+
+
+def test_decode_kernel_in_cuda_graph_reads_lengths_on_device():
+    """One captured launch, replayed with lengths changed in place: the split
+    plan is read on the device, and the tickets are reset by every call."""
+    q = _rand((2, 32, 1, 64), "bfloat16", 0)
+    k, v = _rand((2, 8, 512, 64), "bfloat16", 1), _rand((2, 8, 512, 64), "bfloat16", 2)
+    lens = torch.tensor([266, 5], dtype=torch.int32, device="cuda")
+    ops.decode_attention(q, k, v, lens)  # builds the kernel and zeroes the tickets
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, k, v, lens)
+    tol = TOL["decode_attention"]["bfloat16"]
+    for lengths in ([266, 5], [1, 512], [17, 300], [0, 100], [512, 1], [266, 5]):
+        lens.copy_(torch.tensor(lengths, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ref.decode_attention_ref(q, k, v, lens).float()
+        for b, length in enumerate(lengths):
+            if length == 0:
+                assert torch.all(out[b] == 0)
+            else:
+                torch.testing.assert_close(out[b].float(), want[b], rtol=tol, atol=tol)
+        assert torch.equal(out, ops.decode_attention(q, k, v, lens))
 
 
 def test_decode_kernel_zeros_at_length_zero():
