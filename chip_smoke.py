@@ -15,8 +15,15 @@ Run from the root of a checkout. It imports ``src/repro_torch`` (never
 4. serves ``--requests`` requests (ragged prompts of 64-256 tokens,
    ``--new-tokens`` greedy tokens each) on full-width llama3.2-1b (bf16,
    random weights from ``--seed``) through ``MinosServingEngine``, in an
-   ungated and a gated arm, and checks that the tokens agree across arms and
-   that phases 3-4 launched every kernel and called no plain version;
+   ungated and a gated arm, on the compiled surface (``prefill_jit`` and
+   ``decode_tokens``, each a CUDA graph captured at the first call of a
+   shape), and checks that the tokens agree across arms and that phases 3-4
+   launched each kernel exactly as often as the path needs (the probe's
+   repeats; one K2 launch a layer a request; one K3 launch a layer a decode
+   step) and called no plain version;
+4b. serves the same requests again through the captured path and through
+   the eager one (prefill, then one ``decode_step`` at a time) and checks
+   that the tokens are equal and the K/V rows each wrote agree;
 5. runs one request in f32 on the kernel path and on the plain path and
    checks that the logits agree and the greedy tokens are equal; then the
    longest prompt's prefill in bf16, the serving dtype, on both paths with
@@ -25,7 +32,10 @@ Run from the root of a checkout. It imports ``src/repro_torch`` (never
    events) beside its bound, its plain version and the PyTorch library call
    that computes the same function; K3 also over a 4000-key prefix, with the
    cache warm and cold in L2, and at length 0; then each request's prefill
-   and decode.
+   and decode on the captured and on the eager path (phase 4b's run), the
+   capture time of each shape, the kernels of one eager decode step and the
+   device's idle share in an eager and in a captured step (``torch.profiler``),
+   and the memory the graphs and their static caches hold.
 
 It exits non-zero, printing no result, if there is no CUDA device or any
 phase fails. Its last two lines are the card's ``nvidia-smi`` name and power
@@ -457,48 +467,206 @@ def time_kernels(main_shapes, main_err, launches, card_str):
     return out
 
 
-def time_requests(engine, reqs, card_str):
-    be = engine.backend
-    model, params = be.model, be.params
+def eager_decode(model, params, cache, tok, n_steps):
+    """The greedy loop one ``decode_step`` at a time: the eager path."""
+    from repro_torch.models.model import greedy_token
+
+    out = []
+    for _ in range(n_steps):
+        logits, _ = model.decode_step(params, cache, tok)
+        tok = greedy_token(logits)
+        out.append(tok)
+    return torch.cat(out, 1)
+
+
+def captured_vs_eager(engine, reqs, served):
+    """Phase 4b: each request through the captured path (phase 4's graphs,
+    replayed) and through the eager path, on caches of the same length, so
+    that the kernels see the same shapes. Returns each request's wall times."""
     from repro_torch.serving.backend import _bucket
 
-    for req in reqs:
+    be = engine.backend
+    model, params = be.model, be.params
+    tol = TOL["decode_attention"][torch.bfloat16]
+    rows, worst = [], 0.0
+    for req, res in zip(reqs, served):
         S, T = len(req.prompt), req.max_new_tokens
         Tb = _bucket(T, base=be.decode_bucket)
+        cache_len = _bucket(S + Tb, base=be.decode_bucket)
         prompt = torch.tensor(req.prompt, device=DEVICE)[None]
-        cache = model.init_cache(1, _bucket(S + Tb, base=be.decode_bucket))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.prefill(params, {"tokens": prompt}, cache)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        toks, _ = model.decode_tokens(params, cache, prompt[:, -1:], Tb)
-        toks.cpu()
-        t2 = time.perf_counter()
-        print(f"[6] request {req.request_id}: prompt {S} tokens, prefill {(t1 - t0) * 1e3:.3f} ms, "
-              f"decode {Tb} steps {(t2 - t1) * 1e3:.3f} ms ({(t2 - t1) * 1e3 / Tb:.3f} ms/step) "
-              f"wall ({card_str})")
+        caches = {"captured": model.static_cache(1, cache_len),
+                  "eager": model.init_cache(1, cache_len)}
+        toks, times = {}, {}
+        for path, cache in caches.items():
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            if path == "captured":
+                model.prefill_jit(params, {"tokens": prompt}, cache)
+            else:
+                model.prefill(params, {"tokens": prompt}, cache)
+            ev[1].record()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if path == "captured":
+                out = model.decode_tokens(params, cache, prompt[:, -1:], Tb)[0]
+            else:
+                out = eager_decode(model, params, cache, prompt[:, -1:], Tb)
+            ev[2].record()
+            toks[path] = out.cpu()
+            # (prefill wall, decode wall, prefill span, decode span) in ms; a
+            # span is the time between CUDA events recorded before and after
+            times[path] = ((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3,
+                           ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]))
+        if not torch.equal(toks["captured"], toks["eager"]):
+            raise PhaseError(f"request {req.request_id}: captured and eager tokens differ")
+        if not np.array_equal(toks["captured"][0, :T].numpy(), res.tokens):
+            raise PhaseError(f"request {req.request_id}: captured tokens differ from served ones")
+        a, b = caches["captured"], caches["eager"]
+        diff = max((a[n][:, :, :, :S + Tb].float() - b[n][:, :, :, :S + Tb].float()
+                    ).abs().max().item() for n in ("k", "v"))
+        worst = max(worst, diff)
+        if diff > tol or not torch.equal(a["lengths"], b["lengths"]):
+            raise PhaseError(f"request {req.request_id}: captured K/V rows differ from eager "
+                             f"by {diff:.3e}")
+        rows.append((req.request_id, S, Tb, times))
+    print(f"[4b] captured vs eager, {len(reqs)} requests: tokens equal (and equal to phase 4's); "
+          f"K/V rows max |diff| {worst:.4e} (tolerance {tol}, the bf16 decode tolerance)")
+    return rows
 
-    # One decode step of the first request, eager against its device time
-    # (the same step captured in a CUDA graph and replayed): how long the
-    # card idles while the host launches. The cache has room for the steps
-    # both measurements take.
+
+def profiled(fn):
+    """``fn()`` under ``torch.profiler``: (kernels, copies and sets, summed
+    device ms, ms from the first device activity's start to the last one's
+    end)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise PhaseError("torch.profiler recorded no device activity")
+    copies = sum(1 for e in dev if e.name.startswith(("Memcpy", "Memset")))
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    span = (max(e.time_range.end for e in dev) - min(e.time_range.start for e in dev)) / 1e3
+    return len(dev) - copies, copies, busy, span, dev
+
+
+def heaviest(dev, n=5) -> str:
+    """The ``n`` kernel names with the most device time in ``dev``, with
+    their share of it and their count."""
+    by_name: dict[str, list[float]] = {}
+    for e in dev:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    total = sum(sum(v) for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:n]
+    return "; ".join(f"{sum(v) / total:.3f} in {len(v)} x {name[:70]}" for name, v in top)
+
+
+def clocks() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0].strip()
+
+
+def time_requests(engines, reqs, rows, card_str):
+    from repro_torch.serving.backend import _bucket
+
+    for rid, S, Tb, times in rows:
+        (cp, cd, cps, cds), (ep, ed, _, _) = times["captured"], times["eager"]
+        print(f"[6] request {rid}: prompt {S} tokens | captured: prefill {cp:.3f} ms, decode "
+              f"{Tb} steps {cd:.3f} ms ({cd / Tb:.4f} ms/step) wall; event spans prefill "
+              f"{cps:.3f} ms, decode {cds:.3f} ms | eager: prefill {ep:.3f} ms, decode "
+              f"{ed:.3f} ms ({ed / Tb:.4f} ms/step) wall ({card_str})")
+    for name, eng in engines.items():
+        print(f"[6] {name} arm, capture wall time per shape: " + "; ".join(
+            f"{key[0]}{key[1:]} {ms:.1f} ms" for key, ms in eng.model.graphs.capture_ms.items())
+            + f" | {eng.model.graph_stats} ({card_str})")
+
+    # The first request's decode, eager and captured: kernels a step, device
+    # time (the profiler's sum of kernel times), wall time, idle share.
+    be = engines["baseline"].backend
+    model, params = be.model, be.params
     req = reqs[0]
+    S = len(req.prompt)
+    Tb = _bucket(req.max_new_tokens, base=be.decode_bucket)
     prompt = torch.tensor(req.prompt, device=DEVICE)[None]
-    cache = model.init_cache(1, len(req.prompt) + 64)
+    cache = model.init_cache(1, S + 64)
     model.prefill(params, {"tokens": prompt}, cache)
     tok = prompt[:, -1:].clone()
     steps = 16
+    model.decode_step(params, cache, tok)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
         model.decode_step(params, cache, tok)
     torch.cuda.synchronize()
     eager_ms = (time.perf_counter() - t0) * 1e3 / steps
-    device_ms = graph_ms(lambda: model.decode_step(params, cache, tok), calls=1, replays=steps)
-    print(f"[6] decode step (prompt {len(req.prompt)}): eager {eager_ms:.4f} ms wall, "
-          f"{device_ms:.4f} ms on the device as one CUDA graph; the card idles "
-          f"{1 - device_ms / eager_ms:.3f} of an eager step ({card_str})")
+    kernels, copies, busy, _, _ = profiled(lambda: model.decode_step(params, cache, tok))
+    graph_step = graph_ms(lambda: model.decode_step(params, cache, tok), calls=1, replays=steps)
+    print(f"[6] eager decode step (prompt {S}): {kernels} kernels and {copies} copies/sets "
+          f"(torch.profiler), {busy:.4f} ms of device time, {eager_ms:.4f} ms wall; idle share "
+          f"{1 - busy / eager_ms:.3f}; the step as one CUDA graph {graph_step:.4f} ms on the "
+          f"device ({card_str})")
+
+    # The same request's captured prefill and decode loop: wall time and
+    # event span unprofiled, five times, the card's clocks sampled during
+    # the fifth (its wall holds the sampling, so it is left out of the
+    # means); then one of each under the profiler for its kernel time. The
+    # idle share is 1 - kernel time / unprofiled wall: the gaps between the
+    # graph's kernels (event span - kernel time) and the host's share (wall
+    # - event span). The profiler's own trace span is longer than the
+    # unprofiled one: tracing slows the replay.
+    static = model.static_cache(1, _bucket(S + Tb, base=be.decode_bucket))
+    runs = {"prefill": lambda: model.prefill_jit(params, {"tokens": prompt}, static)[0],
+            "decode": lambda: model.decode_tokens(params, static, tok, Tb)[0]}
+    for name, fn in runs.items():
+        walls, spans = [], []
+        for i in range(5):
+            static["lengths"].fill_(S)  # back to the end of the prompt
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            out = fn()
+            end.record()
+            sampled = clocks() if i == 4 else None
+            out.cpu()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            spans.append(start.elapsed_time(end))
+        static["lengths"].fill_(S)
+        kernels, copies, busy, trace, dev = profiled(lambda: fn().cpu())
+        wall, span = float(np.mean(walls[:4])), float(np.mean(spans[:4]))
+        what = f"decode loop (prompt {S}, {Tb} steps)" if name == "decode" else \
+            f"prefill (prompt {S})"
+        per_step = (f" ({wall / Tb:.4f} ms wall and {busy / Tb:.4f} ms of kernels a step)"
+                    if name == "decode" else "")
+        print(f"[6] captured {what}: unprofiled wall {' '.join(f'{w:.3f}' for w in walls[:4])}"
+              f" ms, event spans {' '.join(f'{s:.3f}' for s in spans[:4])} ms; clocks during "
+              f"the fifth (SM, memory, power): {sampled}; profiled: {kernels} kernels and "
+              f"{copies} copies/sets, {busy:.4f} ms of kernel time (trace span {trace:.4f} ms)"
+              f"{per_step}; idle share {1 - busy / wall:.3f}: between the graph's kernels "
+              f"{(span - busy) / wall:.3f}, on the host {(wall - span) / wall:.3f} ({card_str})")
+        print(f"[6] captured {name}, heaviest kernels (share of kernel time): {heaviest(dev)}")
+
+
+def graph_memory(engines, card_str):
+    """What each arm's graphs hold on the device: their static caches, and
+    the segments of their shared memory pool (from the allocator's snapshot)."""
+    segments = torch.cuda.memory_snapshot()
+    for name, eng in engines.items():
+        g = eng.model.graphs
+        static = sum(t.numel() * t.element_size() for c in g.caches.values() for t in c.values())
+        pool = sum(s["total_size"] for s in segments
+                   if tuple(s.get("segment_pool_id", ())) == tuple(g.pool))
+        print(f"[6] {name} arm: {len(g.graphs)} graphs hold {static / 1e6:.3f} MB of static "
+              f"caches ({len(g.caches)}) and {pool / 1e6:.3f} MB in their memory pool "
+              f"({card_str})")
 
 
 def main() -> int:
@@ -559,9 +727,17 @@ def main() -> int:
     engines, results = serve_arms(cfg, reqs, args.seed, card_str)
     launches, plain = dict(ops.launches), dict(ops.plain)
     print(json.dumps({"counters": {"launches": launches, "plain": plain}}))
-    if min(launches.values()) <= 0 or max(plain.values()) != 0:
-        raise PhaseError(f"main path did not go through every kernel: {launches} {plain}")
+    # the probe's repeats; per request and arm, one K2 launch a layer and one
+    # K3 launch a layer a decode step (the bucket's steps)
+    expected = {"matmul": probe.repeats,
+                "flash_attention": 2 * len(reqs) * cfg.n_layers,
+                "decode_attention": 2 * len(reqs) * cfg.n_layers * tb}
+    if launches != expected or max(plain.values()) != 0:
+        raise PhaseError(f"main path launches {launches}, plain {plain}; expected {expected} "
+                         f"launches and no plain call")
+    print(f"[4] launches exactly as the path needs: {expected}; no plain call")
     check_outputs(cfg, reqs, results)
+    rows = captured_vs_eager(engines["baseline"], reqs, results["baseline"])
 
     # 5. kernel path against plain path at full width: f32, then bf16
     f32_kernel_vs_plain(cfg, reqs[0], args.seed)
@@ -569,7 +745,8 @@ def main() -> int:
 
     # 6. times
     kernels = time_kernels(main_shapes, main_err, launches, card_str)
-    time_requests(engines["baseline"], reqs, card_str)
+    time_requests(engines, reqs, rows, card_str)
+    graph_memory(engines, card_str)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_str)

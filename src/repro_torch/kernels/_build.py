@@ -16,9 +16,12 @@ package on a machine with no ``nvcc``.
 counts the calls the dispatcher (:mod:`repro_torch.kernels.ops`) sent to a
 kernel's plain PyTorch version. A run that claims to have gone through the
 kernels resets both with :func:`reset_counters` and reads them afterwards.
+A CUDA graph counts what it recorded at each replay (:func:`recording`,
+:func:`replayed`): its capture runs nothing, so it counts nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -58,6 +61,30 @@ def reset_counters() -> None:
     for d in (launches, plain):
         for name in d:
             d[name] = 0
+
+
+@contextlib.contextmanager
+def recording():
+    """Around a CUDA-graph capture: yields a dict that holds, once the block
+    has ended, the counts made inside it (``{"launches": {...}, "plain":
+    {...}}``), and leaves the counters as they were before it."""
+    counters = {"launches": launches, "plain": plain}
+    before = {key: dict(d) for key, d in counters.items()}
+    recorded: dict[str, dict[str, int]] = {}
+    try:
+        yield recorded
+        for key, d in counters.items():
+            recorded[key] = {name: d[name] - before[key][name] for name in d}
+    finally:
+        for key, d in counters.items():
+            d.update(before[key])
+
+
+def replayed(recorded: dict[str, dict[str, int]]) -> None:
+    """Count one replay of a graph whose capture recorded ``recorded``."""
+    for key, d in (("launches", launches), ("plain", plain)):
+        for name, n in recorded[key].items():
+            d[name] += n
 
 
 def _build_root() -> Path:

@@ -38,7 +38,7 @@ KEY_GRAN = 32      # a split's keys are a multiple of this (as the kernel's KEY_
 MAX_SPLITS = 32    # as the kernel's MAX_SPLITS
 MAX_TICKETS = 1 << 14  # batch * kv_heads a call may have
 
-__all__ = ["decode_attention", "plain", "n_splits", "split_range"]
+__all__ = ["decode_attention", "plain", "prepare", "n_splits", "split_range"]
 
 _tickets: dict[int, torch.Tensor] = {}
 
@@ -70,10 +70,18 @@ def _tickets_for(device: torch.device) -> torch.Tensor:
     index = device.index if device.index is not None else torch.cuda.current_device()
     if index not in _tickets:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("decode_attention: call it once on this device before "
-                               "capturing it in a CUDA graph (its ticket array is zeroed then)")
+            raise RuntimeError("decode_attention: call it or prepare() once on this device "
+                               "before capturing it in a CUDA graph (its ticket array is "
+                               "zeroed then)")
         _tickets[index] = torch.zeros(MAX_TICKETS, dtype=torch.int32, device=device)
     return _tickets[index]
+
+
+def prepare(device: torch.device) -> None:
+    """Zero ``device``'s ticket array, launching nothing: what a CUDA-graph
+    capture of :func:`decode_attention` needs done first."""
+    with torch.cuda.device(device):
+        _tickets_for(device)
 
 
 def decode_attention(

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from . import _build, ref
+from . import decode_attention as _k3
 from .decode_attention import decode_attention as _decode_attention
 from .flash_attention import flash_attention as _flash_attention
 from .matmul_probe import matmul as _matmul
@@ -24,6 +25,15 @@ from .matmul_probe import matmul as _matmul
 launches = _build.launches
 plain = _build.plain
 reset_counters = _build.reset_counters
+
+
+def prepare_capture(device: torch.device) -> None:
+    """Make the kernels ready to be captured in a CUDA graph on ``device``:
+    build and load them, and zero the decode kernel's ticket array. Launches
+    nothing, so the launch counts stay those of real work."""
+    for name in _build.KERNELS:
+        _build.kernel(name)
+    _k3.prepare(device)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:

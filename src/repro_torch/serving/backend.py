@@ -21,11 +21,13 @@ Shapes are padded to buckets exactly as in ``repro`` (``decode_mode="jit"``):
   masking would change the last-token logits, and the flash-attention kernel
   masks ragged lengths itself.
 
-PyTorch runs eagerly, so nothing is compiled; the bucketed path is the one a
-CUDA graph can capture, one graph per bucket. ``jit_stats`` keeps
-``repro``'s keys: ``jit_calls`` counts bucketed runs, ``bucket_compiles`` the
-distinct buckets seen, ``eager_calls`` runs of the per-step baseline loop
-(``decode_mode="eager"``, one host read per token).
+The bucketed path runs ``Model.prefill_jit`` and ``Model.decode_tokens`` on
+the model's static cache of the bucket, as ``repro`` runs its jitted pair: on
+the card each is a CUDA graph captured at the first call of its shape and
+replayed after it (``Model.graph_stats`` counts them). ``jit_stats`` keeps
+``repro``'s keys and counts: ``jit_calls`` counts bucketed runs,
+``bucket_compiles`` the distinct buckets seen, ``eager_calls`` runs of the
+per-step baseline loop (``decode_mode="eager"``, one host read per token).
 
 Work units: prefill = S tokens × c_prefill, decode = steps × c_decode ms at
 unit speed; observed duration = work / replica speed — the engine then
@@ -230,9 +232,10 @@ class ModelServingBackend:
 
         B = min(_bucket(max(1, load)), self.max_decode_batch)
         Tb = _bucket(T, base=self.decode_bucket)
-        # cache length is bucketed too, so one captured decode loop serves
-        # every prompt length in the bucket (decode attention masks by
-        # `lengths`, so the padded tail is never read)
+        # cache length is bucketed too, so one captured decode loop and one
+        # static cache serve every prompt length in the bucket (decode
+        # attention masks by `lengths`, so the padded tail and an earlier
+        # request's rows are never read)
         cache_len = _bucket(S + Tb, base=self.decode_bucket)
         key = (self.cfg.family, B, S, Tb, cache_len)
         if key not in self._compiled_buckets:
@@ -240,8 +243,8 @@ class ModelServingBackend:
             self.jit_stats["bucket_compiles"] += 1
         if B > 1:
             prompt = prompt.expand(B, S).contiguous()
-        cache = model.init_cache(B, cache_len)
-        _, cache = model.prefill(self.params, {"tokens": prompt}, cache)
+        cache = model.static_cache(B, cache_len)
+        _, cache = model.prefill_jit(self.params, {"tokens": prompt}, cache)
         tok = prompt[:, -1:]
         toks, _ = model.decode_tokens(self.params, cache, tok, Tb)
         self.jit_stats["jit_calls"] += 1

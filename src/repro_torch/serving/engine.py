@@ -13,9 +13,9 @@ All execution machinery (replica pool, gate, clock, queue, billing) is the
 :class:`~repro_torch.core.substrate.SubstrateEngine`; this module only adapts the
 request/result types and exposes the historical serving API. Because both
 this engine and the simulator are backends of the same substrate, the
-serving path supports platform-profile hosting knobs (any object with the
-``knobs(max_pool=)`` of ``repro.sim.platform.PlatformProfile``), contention
-drift, LIFO/FIFO pools, and idle/recycle reclaim — and an
+serving path supports :class:`~repro_torch.sim.platform.PlatformProfile`
+hosting knobs, contention drift, LIFO/FIFO pools, and idle/recycle reclaim —
+and an
 :class:`~repro_torch.core.policy.AdaptiveMinosPolicy` gets its probe stream wired
 automatically.
 
@@ -27,7 +27,7 @@ gate therefore makes exactly ``repro``'s decisions on the same seed.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import TYPE_CHECKING, Any, Optional
 
 import numpy as np
 
@@ -36,6 +36,9 @@ from repro_torch.core.cost import Pricing
 from repro_torch.core.lifecycle import FunctionInstance
 from repro_torch.core.substrate import RequestResult, SubstrateEngine
 from repro_torch.serving.backend import ModelServingBackend, ServeRequest, ServeResult
+
+if TYPE_CHECKING:
+    from repro_torch.sim.platform import PlatformProfile
 
 __all__ = ["MinosServingEngine", "Replica", "ServeRequest", "ServeResult"]
 
@@ -77,7 +80,7 @@ class MinosServingEngine(SubstrateEngine):
         max_pool: int = 8,
         contention_rho: float = 1.0,
         variation=None,
-        profile: Any = None,
+        profile: Optional["PlatformProfile"] = None,
         online_controller=None,
         per_instance_concurrency: int = 1,
         load_slowdown_alpha: float = 0.0,

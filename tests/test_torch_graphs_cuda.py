@@ -1,0 +1,216 @@
+"""The compiled serving surface on the card: ``Model.prefill_jit`` and
+``Model.decode_tokens`` as CUDA graphs.
+
+Every test carries the ``cuda`` marker and skips where
+``torch.cuda.is_available()`` is false. The file imports no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_graphs_cuda.py
+
+The captured path runs the same kernels on the same shapes as the eager one,
+so tokens must be equal and the K/V rows the captured loop writes equal to
+the eager loop's, bitwise or within the bf16 decode tolerance 2e-2 (f32
+2e-3), as ``test_torch_kernels_cuda.py`` holds the decode kernel.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.kernels import _build
+from repro_torch.models.model import build_model, greedy_token
+from repro_torch.serving.backend import ModelServingBackend, ServeRequest
+
+ROOT = Path(__file__).resolve().parents[1]
+TOL = {"float32": 2e-3, "bfloat16": 2e-2}
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs and the kernels run only on the card")
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+
+
+def _model(dtype="bfloat16"):
+    return build_model(dataclasses.replace(get_smoke_config("llama3.2-1b"), dtype=dtype))
+
+
+def _prompt(S, vocab, seed):
+    return torch.tensor(np.random.RandomState(seed).randint(0, vocab, size=(1, S)),
+                        dtype=torch.int32, device="cuda")
+
+
+def _close(got, want, dtype, what):
+    """Within TOL[dtype] (rtol = atol); prints the largest |difference|."""
+    diff = (got.float() - want.float()).abs().max().item()
+    print(f"captured vs eager {what}, {dtype}: max |diff| {diff:.3e}")
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def _eager(m, params, prompt, cache_len, n_steps):
+    """prefill and the greedy loop, step by step, on a fresh cache."""
+    cache = m.init_cache(prompt.shape[0], cache_len)
+    logits, _ = m.prefill(params, {"tokens": prompt}, cache)
+    tok, toks = prompt[:, -1:], []
+    for _ in range(n_steps):
+        step, _ = m.decode_step(params, cache, tok)
+        tok = greedy_token(step)
+        toks.append(tok)
+    return logits, torch.cat(toks, 1), cache
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_captured_path_matches_eager_loop(dtype):
+    m = _model(dtype)
+    params = m.init(0)
+    S, cache_len, T = 37, 64, 16
+    prompt = _prompt(S, m.cfg.vocab, 1)
+    cache = m.static_cache(1, cache_len)
+    logits, _ = m.prefill_jit(params, {"tokens": prompt}, cache)
+    toks, _ = m.decode_tokens(params, cache, prompt[:, -1:], T)
+    torch.cuda.synchronize()
+    want_logits, want_toks, want = _eager(m, params, prompt, cache_len, T)
+    assert m.graph_stats == {"captures": 2, "replays": 2, "dropped": 0}
+    assert toks.dtype == torch.int32 and toks.shape == (1, T)
+    assert torch.equal(toks, want_toks)
+    _close(logits, want_logits, dtype, "prefill logits")
+    for n in ("k", "v"):
+        _close(cache[n][:, :, :, :S + T], want[n][:, :, :, :S + T], dtype, f"{n} rows")
+    assert torch.equal(cache["lengths"], want["lengths"])
+
+
+def test_launch_counts_are_replays_times_what_was_captured():
+    m = _model()
+    params = m.init(0)
+    L, T = m.cfg.n_layers, 8
+    prompt = _prompt(20, m.cfg.vocab, 2)
+    cache = m.static_cache(1, 32)
+    _build.reset_counters()
+    for n in range(1, 4):
+        m.prefill_jit(params, {"tokens": prompt}, cache)
+        m.decode_tokens(params, cache, prompt[:, -1:], T)
+        assert _build.launches == {"matmul": 0, "flash_attention": n * L,
+                                   "decode_attention": n * L * T}
+    assert sum(_build.plain.values()) == 0
+    recorded = m.graphs.graphs[("decode", 1, 32, T)].recorded
+    assert recorded["launches"]["decode_attention"] == L * T
+    assert m.graph_stats == {"captures": 2, "replays": 6, "dropped": 0}
+
+
+def test_swapped_weights_take_effect_after_capture():
+    m = _model()
+    a, b = m.init(0), m.init(1)
+    prompt = _prompt(25, m.cfg.vocab, 3)
+    cache = m.static_cache(1, 64)
+    la, _ = m.prefill_jit(a, {"tokens": prompt}, cache)
+    ta, _ = m.decode_tokens(a, cache, prompt[:, -1:], 8)
+    lb, _ = m.prefill_jit(b, {"tokens": prompt}, cache)   # another module: recaptured
+    tb, _ = m.decode_tokens(b, cache, prompt[:, -1:], 8)
+    want_lb, want_tb, _ = _eager(m, b, prompt, 64, 8)
+    assert not torch.equal(la, lb)
+    _close(lb, want_lb, "bfloat16", "prefill logits, swapped weights")
+    assert torch.equal(tb, want_tb)
+    assert m.graph_stats["dropped"] == 2 and m.graph_stats["captures"] == 4
+    # weights written in place are read by the graphs as they are
+    with torch.no_grad():
+        for pa, pb in zip(a.parameters(), b.parameters()):
+            pa.copy_(pb)
+    la2, _ = m.prefill_jit(a, {"tokens": prompt}, cache)  # a module again: recaptured
+    _close(la2, want_lb, "bfloat16", "prefill logits, weights copied in")
+    captures = m.graph_stats["captures"]
+    with torch.no_grad():
+        a.embed.mul_(2)
+    la3, _ = m.prefill_jit(a, {"tokens": prompt}, cache)
+    assert m.graph_stats["captures"] == captures  # same tensors: replayed
+    want_la3, _ = m.prefill(a, {"tokens": prompt}, m.init_cache(1, 64))
+    _close(la3, want_la3, "bfloat16", "prefill logits, weights scaled")
+    assert not torch.equal(la3, la2)
+
+
+def test_a_foreign_cache_is_copied_in_and_out():
+    m = _model()
+    params = m.init(0)
+    prompt = _prompt(30, m.cfg.vocab, 4)
+    cache = m.init_cache(1, 64)
+    logits, out = m.prefill_jit(params, {"tokens": prompt}, cache)
+    toks, out = m.decode_tokens(params, cache, prompt[:, -1:], 8)
+    assert out is cache
+    want_logits, want_toks, want = _eager(m, params, prompt, 64, 8)
+    assert torch.equal(toks, want_toks)
+    _close(logits, want_logits, "bfloat16", "prefill logits, foreign cache")
+    for name in ("k", "v"):
+        _close(cache[name], want[name], "bfloat16", f"{name} rows, foreign cache")
+    assert torch.equal(cache["lengths"], want["lengths"])
+    with pytest.raises(ValueError, match="does not match"):
+        m.decode_tokens(params, m.init_cache(1, 32), prompt[:, -1:].expand(2, 1), 8)
+
+
+def test_backend_serves_through_the_graphs():
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"), dtype="bfloat16")
+    be = ModelServingBackend(cfg, seed=0)
+    rs = np.random.RandomState(5)
+    reqs = [ServeRequest(prompt=rs.randint(0, cfg.vocab, size=s).astype(np.int32),
+                         max_new_tokens=6) for s in (20, 20, 13)]
+    got = [be.run_model(r) for r in reqs]
+    # one cache bucket (32), two prompt shapes: 2 prefill graphs, 1 decode graph
+    assert be.model.graph_stats == {"captures": 3, "replays": 6, "dropped": 0}
+    assert be.jit_stats == {"jit_calls": 3, "eager_calls": 0, "bucket_compiles": 2}
+    for r, toks in zip(reqs, got):
+        prompt = torch.tensor(r.prompt, device="cuda")[None]
+        want = _eager(be.model, be.params, prompt, 32, 8)[1]
+        np.testing.assert_array_equal(toks, want[0, :6].cpu().numpy())
+
+
+def test_first_decode_kernel_call_inside_a_capture_in_a_fresh_process():
+    """A process whose first decode-attention call is recorded by a capture
+    (the ticket array is zeroed before it), and a capture that meets a host
+    sync raises."""
+    code = """
+import dataclasses, torch
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.kernels import decode_attention as k3
+from repro_torch.models.graphs import GraphCache
+from repro_torch.models.model import build_model, greedy_token
+m = build_model(dataclasses.replace(get_smoke_config("llama3.2-1b"), dtype="bfloat16"))
+params = m.init(0)
+cache = m.static_cache(1, 64)
+gen = torch.Generator(device="cuda").manual_seed(0)
+for name in ("k", "v"):
+    cache[name].copy_(torch.randn(cache[name].shape, generator=gen, device="cuda"))
+cache["lengths"].fill_(10)
+eager = {n: t.clone() for n, t in cache.items()}
+tok = torch.tensor([[7]], dtype=torch.int32, device="cuda")
+assert not k3._tickets
+toks, _ = m.decode_tokens(params, cache, tok, 8)
+want, t = [], tok
+for _ in range(8):
+    t = greedy_token(m.decode_step(params, eager, t)[0])
+    want.append(t)
+assert torch.equal(toks, torch.cat(want, 1)), (toks, want)
+assert m.graph_stats["captures"] == 1
+try:
+    GraphCache().run(("sync",), params, tok, lambda x: x * int(x.sum().item()), cache, cache)
+except RuntimeError as e:
+    print("raised:", str(e).splitlines()[0])
+else:
+    raise SystemExit("a capture with a host sync did not raise")
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=600)
+    print(out.stdout)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().endswith("ok")

@@ -21,7 +21,8 @@ VERBATIM = [
     "core/policy.py", "core/lifecycle.py", "core/queue.py", "core/cost.py",
     "core/elysium.py", "core/control.py", "core/substrate.py",
     "faults/__init__.py", "analysis/sanitizer.py", "sim/variation.py",
-    "configs/registry.py",
+    "sim/platform.py", "sim/workload.py", "sim/metrics.py", "sim/experiment.py",
+    "sim/arrivals.py", "sim/workflow_dag.py", "configs/registry.py",
 ] + sorted(
     f"configs/{p.name}" for p in (REF / "configs").glob("*.py")
     if p.name not in ("base.py", "registry.py")

@@ -94,6 +94,7 @@ def test_engine_matches_reference_under_sanitizer(monkeypatch):
     monkeypatch.setenv("REPRO_SANITIZE", "1")
     je, te, jres, tres = _serve_both("qwen3-0.6b", "classic")
     _assert_identical(je, te, jres, tres)
+    assert te.jit_stats == je.jit_stats
 
 
 # ---------------------------------------------------------------------------
