@@ -27,7 +27,8 @@ Run from the root of a checkout. It imports ``src/repro_torch`` (never
 5. runs one request in f32 on the kernel path and on the plain path and
    checks that the logits agree and the greedy tokens are equal; then the
    longest prompt's prefill in bf16, the serving dtype, on both paths with
-   the serving weights, and holds the logits to ``BF16_LOGIT_LIMIT``;
+   the serving weights, and holds the logits to ``BF16_LOGIT_LIMIT`` (see
+   ``bf16_kernel_vs_plain``);
 6. times each kernel (CUDA graphs of repeated launches, timed with CUDA
    events) beside its bound, its plain version and the PyTorch library call
    that computes the same function; K3 also over a 4000-key prefix, with the
@@ -35,7 +36,18 @@ Run from the root of a checkout. It imports ``src/repro_torch`` (never
    and decode on the captured and on the eager path (phase 4b's run), the
    capture time of each shape, the kernels of one eager decode step and the
    device's idle share in an eager and in a captured step (``torch.profiler``),
-   and the memory the graphs and their static caches hold.
+   and the memory the graphs and their static caches hold;
+7. the MoE family: (a) serves the same requests on full-width
+   granite-moe-1b-a400m (24 layers, 32 experts top-8, bf16, random weights
+   from ``--seed``) in both arms on the captured path, with the launches
+   held exactly as in phase 4 (no probe: no K1); (b) holds captured serving
+   to eager serving as phase 4b; (c) holds the kernel path to the plain path
+   as phase 5, and prints the share of routing choices (token, layer, k) both
+   paths made; then times the requests, captures and steps as phase 6, and
+   one layer's MoE FFN against a decode step; (d) runs deepseek-moe-16b at
+   full width and ``DEEPSEEK_LAYERS`` layers (shared experts, head_dim 128,
+   16 kv heads) on the kernel path against the plain path, in bf16 and f32;
+   and times K2 and K3 at both archs' shapes.
 
 It exits non-zero, printing no result, if there is no CUDA device or any
 phase fails. Its last two lines are the card's ``nvidia-smi`` name and power
@@ -44,6 +56,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -82,8 +95,12 @@ TOL = {
     "decode_attention": {torch.float32: 2e-3, torch.bfloat16: 2e-2},
 }
 # max |logit difference| / max |logit|, bf16 prefill of the longest prompt,
-# kernel path against plain path on the same weights: PERF.md says how it was set
+# kernel path against plain path on the same weights, or twice the plain
+# path's own distance from f32 where that is larger: PERF.md says how it was set
 BF16_LOGIT_LIMIT = 1.1e-2
+MOE_ARCH = "granite-moe-1b-a400m"  # phase 7's served arch
+DEEPSEEK_LAYERS = 4  # of deepseek-moe-16b's 28, at full width (about 5.5 GB in bf16)
+DEEPSEEK_STEPS = 8   # its teacher-forced f32 decode steps
 
 
 class PhaseError(RuntimeError):
@@ -169,14 +186,13 @@ FLASH_EDGES = [
 ]
 
 
-def check_kernels(main_shapes, failures) -> dict[str, float]:
-    """Returns the max abs error at the main path's shape, per kernel."""
+def check_kernels(main_shapes, failures) -> None:
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.matmul_probe import matmul
 
-    main_err, worst = {}, {}
+    worst = {}
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         # K1: the probe's shape, the sweep of test_kernels.py, the ragged and
@@ -184,12 +200,10 @@ def check_kernels(main_shapes, failures) -> dict[str, float]:
         for m, k, n in ((512, 512, 512), (128, 512, 128), (256, 1024, 256),
                         (128, 128, 384), (100, 300, 77), (1, 512, 512), (512, 1, 512)):
             a, b = rand((m, k), dtype, 0), rand((k, n), dtype, 1)
-            err = compare(f"matmul {dtype} {m}x{k}x{n}", lambda: matmul(a, b),
-                          ref.matmul_ref(a, b), failures, worst, tol=TOL["matmul"][dtype],
-                          atol_scale=10.0)
+            compare(f"matmul {dtype} {m}x{k}x{n}", lambda: matmul(a, b),
+                    ref.matmul_ref(a, b), failures, worst, tol=TOL["matmul"][dtype],
+                    atol_scale=10.0)
             n_cases += 1
-            if dtype == torch.float32 and (m, k, n) == (512, 512, 512):
-                main_err["matmul"] = err
         # K2: MHA, GQA 4:1, MQA; d 64/96/128; causal on/off; ragged S
         for d in (64, 96, 128):
             for b_, qh, kvh in ((1, 4, 4), (2, 8, 2), (2, 4, 1)):
@@ -213,12 +227,10 @@ def check_kernels(main_shapes, failures) -> dict[str, float]:
                 n_cases += 1
         b_, qh, kvh, s, d = main_shapes["flash"]
         q, k, v = rand((b_, qh, s, d), dtype, 5), rand((b_, kvh, s, d), dtype, 6), rand((b_, kvh, s, d), dtype, 7)
-        err = compare(f"flash {dtype} main {main_shapes['flash']}",
-                      lambda: flash_attention(q, k, v), ref.attention_ref(q, k, v), failures,
-                      worst, tol=TOL["flash_attention"][dtype])
+        compare(f"flash {dtype} main {main_shapes['flash']}",
+                lambda: flash_attention(q, k, v), ref.attention_ref(q, k, v), failures,
+                worst, tol=TOL["flash_attention"][dtype])
         n_cases += 1
-        if dtype == torch.bfloat16:
-            main_err["flash_attention"] = err
         # K3: random lengths in [1, S] with a length-1 row, or the lengths
         # given; then the edges of tests/test_torch_kernels_cuda.py (group 16,
         # a long prefix, fewer keys than splits, per-batch lengths that
@@ -236,13 +248,11 @@ def check_kernels(main_shapes, failures) -> dict[str, float]:
             if given is not None:
                 lengths = np.asarray(given)
             lens = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
-            err = compare(f"decode {dtype} {(b_, qh, kvh, s, d)} lengths={lengths.tolist()}",
-                          lambda: decode_attention(q, k, v, lens),
-                          ref.decode_attention_ref(q, k, v, lens), failures, worst,
-                          tol=TOL["decode_attention"][dtype])
+            compare(f"decode {dtype} {(b_, qh, kvh, s, d)} lengths={lengths.tolist()}",
+                    lambda: decode_attention(q, k, v, lens),
+                    ref.decode_attention_ref(q, k, v, lens), failures, worst,
+                    tol=TOL["decode_attention"][dtype])
             n_cases += 1
-            if dtype == torch.bfloat16 and (b_, qh, kvh, s, d) == main_shapes["decode"]:
-                main_err["decode_attention"] = err
         q, k, v = rand((2, 4, 1, 64), dtype, 12), rand((2, 2, 256, 64), dtype, 13), rand((2, 2, 256, 64), dtype, 14)
         out = decode_attention(q, k, v, torch.tensor([0, 3], dtype=torch.int32, device=DEVICE))
         if not torch.all(out[0] == 0):
@@ -256,7 +266,6 @@ def check_kernels(main_shapes, failures) -> dict[str, float]:
         f"{k.replace('torch.', '')} {e:.4e} ({w:.4f})" for k, (e, w) in sorted(worst.items())))
     for f in failures:
         print(f"    FAIL {f}")
-    return main_err
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +285,11 @@ def make_requests(cfg, n, new_tokens, seed, ServeRequest):
     return reqs
 
 
-def serve_arms(cfg, reqs, seed, tag):
+def prompt_of(req) -> torch.Tensor:
+    return torch.tensor(req.prompt, device=DEVICE)[None]
+
+
+def serve_arms(cfg, reqs, seed, tag, ph="4"):
     from repro_torch.core.cost import Pricing
     from repro_torch.core.elysium import pretest_threshold
     from repro_torch.core.policy import MinosPolicy
@@ -303,14 +316,14 @@ def serve_arms(cfg, reqs, seed, tag):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         engines[name] = eng
-        print(f"[4] {name:8s}: {len(results[name])} served in {wall:.3f} s wall | replicas started "
+        print(f"[{ph}] {name:8s}: {len(results[name])} served in {wall:.3f} s wall | replicas started "
               f"{eng.replicas_started} terminated {eng.replicas_terminated} | pool speed "
               f"{eng.pool_mean_speed:.3f} | cost ${eng.cost.total:.6f} | threshold "
               f"{policy.elysium_threshold:.1f} ms ({tag})")
     return engines, results
 
 
-def check_outputs(cfg, reqs, results):
+def check_outputs(cfg, reqs, results, ph="4"):
     for a, b, req in zip(results["baseline"], results["minos"], reqs):
         if not np.array_equal(a.tokens, b.tokens):
             raise PhaseError(f"request {req.request_id}: tokens differ across arms")
@@ -318,24 +331,64 @@ def check_outputs(cfg, reqs, results):
             raise PhaseError(f"request {req.request_id}: tokens {a.tokens.shape} {a.tokens.dtype}")
         if a.tokens.min() < 0 or a.tokens.max() >= cfg.vocab:
             raise PhaseError(f"request {req.request_id}: token out of the vocabulary")
-    print(f"[4] tokens identical across arms for all {len(reqs)} requests; "
+    print(f"[{ph}] tokens identical across arms for all {len(reqs)} requests; "
           f"first request's: {results['baseline'][0].tokens[:8].tolist()}...")
 
 
-def f32_kernel_vs_plain(cfg, req, seed):
+@contextlib.contextmanager
+def routes(replay=None):
+    """Records the experts that each MoE layer chose while the block runs:
+    ``moe.gates``' indices, (B, S, K) a call, in call order. With ``replay``
+    (another run's record) each call takes the experts recorded there, in
+    their order, and renormalises its own probabilities at them, as
+    ``moe.gates`` does: the run then routes exactly as the recorded one."""
+    from repro_torch.models import moe
+
+    seen, gates = [], moe.gates
+    recorded = iter(replay) if replay is not None else None
+
+    def recording(m, probs):
+        if recorded is None:
+            vals, idx = gates(m, probs)
+        else:
+            idx = next(recorded)
+            vals = probs.gather(-1, idx)
+            vals = vals / torch.clamp(vals.sum(dim=-1, keepdim=True), min=1e-9)
+        seen.append(idx.clone())
+        return vals, idx
+
+    moe.gates = recording
+    try:
+        yield seen
+    finally:
+        moe.gates = gates
+
+
+def agreement(a, b) -> float:
+    """The share of (token, layer, k) routing choices that two runs'
+    records (``routes()``) both made."""
+    hits = total = 0
+    for x, y in zip(a, b, strict=True):
+        same = (x[..., :, None] == y[..., None, :]).any(-1)  # (B, S, K)
+        hits += int(same.sum())
+        total += same.numel()
+    return hits / total
+
+
+def f32_kernel_vs_plain(cfg, prompt, T, seed, ph="5"):
+    """One request in f32 (prefill, then ``T`` teacher-forced decode steps)
+    on the kernel path and on the plain path, fresh weights from ``seed``."""
     from repro_torch.models.model import build_model, greedy_token
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    mk = build_model(cfg32)
-    mp = build_model(cfg32, use_kernels=False)
-    params = mk.init(seed)
-    prompt = torch.tensor(req.prompt, device=DEVICE)[None]
-    T = req.max_new_tokens
-    caches = {}
-    logits = {}
-    for name, m in (("kernel", mk), ("plain", mp)):
+    paths = {"kernel": build_model(cfg32), "plain": build_model(cfg32, use_kernels=False)}
+    params = paths["kernel"].init(seed)
+    caches, logits, chosen = {}, {}, {"kernel": [], "plain": []}
+    for name, m in paths.items():
         caches[name] = m.init_cache(1, prompt.shape[1] + T)
-        logits[name], _ = m.prefill(params, {"tokens": prompt}, caches[name])
+        with routes() as seen:
+            logits[name], _ = m.prefill(params, {"tokens": prompt}, caches[name])
+        chosen[name] += seen
     scale = logits["plain"].abs().max().item()
     worst = (logits["kernel"] - logits["plain"]).abs().max().item() / scale
     # teacher-forced decode: both paths see the kernel path's tokens
@@ -343,83 +396,177 @@ def f32_kernel_vs_plain(cfg, req, seed):
     toks = {"kernel": [], "plain": []}
     for _ in range(T):
         step = {}
-        for name, m in (("kernel", mk), ("plain", mp)):
-            step[name], _ = m.decode_step(params, caches[name], tok)
+        for name, m in paths.items():
+            with routes() as seen:
+                step[name], _ = m.decode_step(params, caches[name], tok)
+            chosen[name] += seen
             toks[name].append(greedy_token(step[name]))
         worst = max(worst, (step["kernel"] - step["plain"]).abs().max().item()
                     / step["plain"].abs().max().item())
         tok = toks["kernel"][-1]
     tk, tp = torch.cat(toks["kernel"], 1), torch.cat(toks["plain"], 1)
     finite = all(torch.isfinite(x).all().item() for x in logits.values())
-    print(f"[5] f32 full width, one {prompt.shape[1]}-token prompt, {T} steps: max |logit "
-          f"difference| / max |logit| = {worst:.3e} (tolerance 1e-4: the paths differ only in "
-          f"attention's summation order); greedy tokens equal: {torch.equal(tk, tp)}")
+    routing = ""
+    if cfg.moe is not None:
+        routing = (f"; routing choices both paths made: "
+                   f"{agreement(chosen['kernel'], chosen['plain']):.6f}")
+    print(f"[{ph}] f32 {cfg.arch_id} full width ({cfg.n_layers} layers), one {prompt.shape[1]}-token "
+          f"prompt, {T} steps: max |logit difference| / max |logit| = {worst:.3e} (tolerance 1e-4: "
+          f"the paths differ only in attention's summation order); greedy tokens equal: "
+          f"{torch.equal(tk, tp)}{routing}")
     if not finite or worst > 1e-4 or not torch.equal(tk, tp):
-        raise PhaseError("f32 kernel path disagrees with the plain path")
-    del mk, mp, params, caches
+        raise PhaseError(f"f32 kernel path disagrees with the plain path ({cfg.arch_id})")
+    del paths, params, caches
 
 
-def bf16_kernel_vs_plain(engine, req):
+def bf16_kernel_vs_plain(mk, params, prompt, ph="5"):
     """Prefill logits in bf16 at full width, kernel path against plain path
-    on the serving weights: the check that the bf16 attention kernel, the
-    one serving runs, carries the model."""
+    on the same weights: the check that the bf16 attention kernel, the one
+    serving runs, carries the model.
+
+    With an MoE FFN a routing choice can flip between the paths where two
+    experts' probabilities lie within the paths' bf16 difference, and a flip
+    moves its token's logits and the later ones by more than attention's
+    rounding does. So the plain path runs twice: routing itself (the share
+    of choices both paths made, and its logits' difference, are printed)
+    and replaying the kernel path's choices (held). A plain f32 run of the
+    same weights and routing measures how far the held plain path is from
+    the arithmetic both bf16 paths round: the two bf16 paths may differ by
+    ``BF16_LOGIT_LIMIT``, or by twice that distance where it is larger (a
+    kernel path no farther from f32 than the plain path). PERF.md gives the
+    measured numbers."""
     from repro_torch.models.model import build_model
 
-    mk, params = engine.backend.model, engine.backend.params
+    moe = mk.cfg.moe is not None
+    held = "plain, kernel's routing" if moe else "plain"
     mp = build_model(mk.cfg, use_kernels=False)
-    prompt = torch.tensor(req.prompt, device=DEVICE)[None]
-    # the forward pass runs the prefill layers and keeps every position's logits
-    logits = {name: m.forward(params, {"tokens": prompt}).float()
-              for name, m in (("kernel", mk), ("plain", mp))}
-    diff = (logits["kernel"] - logits["plain"]).abs().max().item()
-    rel = diff / logits["plain"].abs().max().item()
-    finite = torch.isfinite(logits["kernel"]).all().item()
-    print(f"[5] bf16 full width, one {prompt.shape[1]}-token prompt, logits at every position: "
-          f"max |logit difference| / max |logit| = {rel:.3e} (limit {BF16_LOGIT_LIMIT:.1e}; "
-          f"max |logit difference| {diff:.4e})")
-    if not finite or rel > BF16_LOGIT_LIMIT:
-        raise PhaseError("bf16 kernel path disagrees with the plain path")
+    m32, p32 = f32_copy(mk.cfg, params)
+    # (name, model, weights, whose routing to replay); the forward pass runs
+    # the prefill layers and keeps every position's logits
+    runs = [("kernel", mk, params, None), ("plain", mp, params, None),
+            ("f32", m32, p32, "kernel" if moe else None)]
+    if moe:
+        runs.append((held, mp, params, "kernel"))
+    logits, chosen = {}, {}
+    for name, m, w, replay in runs:
+        with routes(chosen.get(replay)) as chosen[name]:
+            logits[name] = m.forward(w, {"tokens": prompt})[0].float()
+    del m32, p32
+
+    def rel(a, b):
+        return (logits[a] - logits[b]).abs().max().item() / logits[b].abs().max().item()
+
+    err, from_f32 = rel("kernel", held), rel(held, "f32")
+    limit = max(BF16_LOGIT_LIMIT, 2 * from_f32)
+    top = logits[held].abs().max().item()
+    step = 2.0 ** (np.floor(np.log2(top)) - 7)  # bf16's spacing at the largest logit
+    routing = ""
+    if moe:
+        routing = (f"; routing choices both paths made: {agreement(chosen['kernel'], chosen['plain']):.6f}"
+                   f", each path routing itself {rel('kernel', 'plain'):.3e} (not held)")
+    print(f"[{ph}] bf16 {mk.cfg.arch_id} full width ({mk.cfg.n_layers} layers), one "
+          f"{prompt.shape[1]}-token prompt, logits at every position, max |logit difference| / "
+          f"max |logit|: kernel against {held} path {err:.3e} (limit {limit:.3e}: "
+          f"{BF16_LOGIT_LIMIT:.1e}, or twice the {held} path's distance from f32 "
+          f"{from_f32:.3e}); kernel path from f32 {rel('kernel', 'f32'):.3e}; max |logit| "
+          f"{top:.4f}, bf16 spacing there {step:.6f}{routing}")
+    if not torch.isfinite(logits["kernel"]).all().item() or err > limit:
+        raise PhaseError(f"bf16 kernel path disagrees with the plain path ({mk.cfg.arch_id})")
 
 
-def time_kernels(main_shapes, main_err, launches, card_str):
+def f32_copy(cfg, params):
+    """A plain-path f32 model and an f32 copy of ``params``."""
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import Transformer
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = Transformer(cfg32, torch.device(DEVICE))
+    with torch.no_grad():
+        for a, b in zip(p32.parameters(), params.parameters(), strict=True):
+            a.copy_(b)
+    return build_model(cfg32, use_kernels=False), p32
+
+
+def max_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def flash_row(shape):
+    """K2 at ``shape`` (batch, q heads, kv heads, S, d), causal, bf16 (the
+    inputs of phase 2's main case): (shape text, max_abs_err, kernel ms,
+    plain ms, library ms, bound ms, bound by)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.matmul_probe import matmul
 
-    rows = []
-    # K1 at the probe's shape: n = 512, f32
-    n = 512
-    a, b = rand((n, n), torch.float32, 0), rand((n, n), torch.float32, 1)
-    bms, by = bound(3 * n * n * 4, 2 * n**3, torch.float32)
-    rows.append(("matmul", f"({n},{n})x({n},{n}) f32",
-                 graph_ms(lambda: matmul(a, b)), graph_ms(lambda: ref.matmul_ref(a, b)),
-                 graph_ms(lambda: torch.matmul(a, b)), bms, by))
-    # K2 at the longest prompt: causal, bf16
-    bq, qh, kvh, s, d = main_shapes["flash"]
+    bq, qh, kvh, s, d = shape
     q, k, v = rand((bq, qh, s, d), torch.bfloat16, 5), rand((bq, kvh, s, d), torch.bfloat16, 6), rand((bq, kvh, s, d), torch.bfloat16, 7)
     pairs = bq * qh * s * (s + 1) / 2  # causal (q, k) pairs this input needs
     bms, by = bound(2 * (2 * bq * qh * s * d + 2 * bq * kvh * s * d), 4 * d * pairs, torch.bfloat16)
-    rows.append(("flash_attention", f"q({bq},{qh},{s},{d}) kv({bq},{kvh},{s},{d}) bf16 causal",
-                 graph_ms(lambda: flash_attention(q, k, v)),
-                 graph_ms(lambda: ref.attention_ref(q, k, v)),
-                 graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                                 enable_gqa=True)), bms, by))
-    # K3 at one decode step of that prompt: the cache's valid prefix only
-    bq, qh, kvh, cache, d = main_shapes["decode"]
-    valid = main_shapes["decode_valid"]
+    return (f"q({bq},{qh},{s},{d}) kv({bq},{kvh},{s},{d}) bf16 causal",
+            max_err(flash_attention(q, k, v), ref.attention_ref(q, k, v)),
+            graph_ms(lambda: flash_attention(q, k, v)),
+            graph_ms(lambda: ref.attention_ref(q, k, v)),
+            graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                            enable_gqa=True)), bms, by)
+
+
+def decode_row(shape, valid):
+    """K3 at ``shape`` (batch, q heads, kv heads, cache rows, d), ``valid``
+    rows in use, bf16 (phase 2's main-case inputs); as :func:`flash_row`."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    bq, qh, kvh, cache, d = shape
     qd = rand((bq, qh, 1, d), torch.bfloat16, 9)
     kc, vc = rand((bq, kvh, cache, d), torch.bfloat16, 10), rand((bq, kvh, cache, d), torch.bfloat16, 11)
     lens = torch.full((bq,), valid, dtype=torch.int32, device=DEVICE)
     mask = (torch.arange(cache, device=DEVICE) < valid)[None, None, None, :]
     bms, by = bound(2 * (2 * bq * kvh * valid * d + 2 * bq * qh * d) + 4 * bq,
                     4 * d * bq * qh * valid, torch.bfloat16)
-    rows.append(("decode_attention", f"q({bq},{qh},1,{d}) cache({bq},{kvh},{cache},{d}) valid {valid} bf16",
-                 graph_ms(lambda: decode_attention(qd, kc, vc, lens)),
-                 graph_ms(lambda: ref.decode_attention_ref(qd, kc, vc, lens)),
-                 graph_ms(lambda: F.scaled_dot_product_attention(qd, kc, vc, attn_mask=mask,
-                                                                 enable_gqa=True)), bms, by))
+    return (f"q({bq},{qh},1,{d}) cache({bq},{kvh},{cache},{d}) valid {valid} bf16",
+            max_err(decode_attention(qd, kc, vc, lens), ref.decode_attention_ref(qd, kc, vc, lens)),
+            graph_ms(lambda: decode_attention(qd, kc, vc, lens)),
+            graph_ms(lambda: ref.decode_attention_ref(qd, kc, vc, lens)),
+            graph_ms(lambda: F.scaled_dot_product_attention(qd, kc, vc, attn_mask=mask,
+                                                            enable_gqa=True)), bms, by)
+
+
+def report_rows(rows, launches, card_str, ph, suffix=""):
+    """Prints ``(name, row)`` pairs and returns their entries of the
+    ``kernels`` JSON line, named ``name + suffix``; ``launches`` None: a
+    shape that no served path runs (the entries are then not for that line)."""
+    out = []
+    for name, (shape, err, ms, plain_ms, lib_ms, bms, by) in rows:
+        where = ("not on a served path" if launches is None
+                 else f"launches on the main path {launches[name]}")
+        print(f"[{ph}] {name + suffix:16s} {shape}: kernel {ms:.5f} ms | bound {bms:.5f} ms ({by}) | "
+              f"plain {plain_ms:.5f} ms | library {lib_ms:.5f} ms | max_abs_err {err:.4e} | "
+              f"{where} ({card_str})")
+        src, replaces = SOURCES[name]
+        out.append({"name": name + suffix, "route": "cuda", "source": src, "replaces": replaces,
+                    "launches": launches and launches[name], "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+    return out
+
+
+def time_kernels(main_shapes, launches, card_str):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.matmul_probe import matmul
+
+    # K1 at the probe's shape: n = 512, f32
+    n = 512
+    a, b = rand((n, n), torch.float32, 0), rand((n, n), torch.float32, 1)
+    bms, by = bound(3 * n * n * 4, 2 * n**3, torch.float32)
+    rows = [("matmul", (f"({n},{n})x({n},{n}) f32", max_err(matmul(a, b), ref.matmul_ref(a, b)),
+                        graph_ms(lambda: matmul(a, b)), graph_ms(lambda: ref.matmul_ref(a, b)),
+                        graph_ms(lambda: torch.matmul(a, b)), bms, by)),
+            # K2 at the longest prompt; K3 at one decode step of that prompt
+            ("flash_attention", flash_row(main_shapes["flash"])),
+            ("decode_attention", decode_row(main_shapes["decode"], main_shapes["decode_valid"]))]
     # K3 over a long prefix, beside the main row (not in the kernels line)
+    bq, qh, kvh, _, d = main_shapes["decode"]
+    qd = rand((bq, qh, 1, d), torch.bfloat16, 9)
     cache, valid = 4096, 4000
     kc, vc = rand((bq, kvh, cache, d), torch.bfloat16, 12), rand((bq, kvh, cache, d), torch.bfloat16, 13)
     lens = torch.full((bq,), valid, dtype=torch.int32, device=DEVICE)
@@ -455,16 +602,7 @@ def time_kernels(main_shapes, main_err, launches, card_str):
     print(f"[6] decode_attention fixed cost: length 0 at the main shape "
           f"{graph_ms(lambda: decode_attention(qd, kc, vc, zero)):.5f} ms | a one-element add "
           f"{graph_ms(lambda: one.add_(1)):.5f} ms ({card_str})")
-    out = []
-    for name, shape, ms, plain_ms, lib_ms, bms, by in rows:
-        print(f"[6] {name:16s} {shape}: kernel {ms:.5f} ms | bound {bms:.5f} ms ({by}) | "
-              f"plain {plain_ms:.5f} ms | library {lib_ms:.5f} ms | launches on the main path "
-              f"{launches[name]} ({card_str})")
-        src, replaces = SOURCES[name]
-        out.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                    "launches": launches[name], "max_abs_err": main_err[name], "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
-    return out
+    return report_rows(rows, launches, card_str, "6")
 
 
 def eager_decode(model, params, cache, tok, n_steps):
@@ -479,7 +617,7 @@ def eager_decode(model, params, cache, tok, n_steps):
     return torch.cat(out, 1)
 
 
-def captured_vs_eager(engine, reqs, served):
+def captured_vs_eager(engine, reqs, served, ph="4b"):
     """Phase 4b: each request through the captured path (phase 4's graphs,
     replayed) and through the eager path, on caches of the same length, so
     that the kernels see the same shapes. Returns each request's wall times."""
@@ -531,7 +669,7 @@ def captured_vs_eager(engine, reqs, served):
             raise PhaseError(f"request {req.request_id}: captured K/V rows differ from eager "
                              f"by {diff:.3e}")
         rows.append((req.request_id, S, Tb, times))
-    print(f"[4b] captured vs eager, {len(reqs)} requests: tokens equal (and equal to phase 4's); "
+    print(f"[{ph}] captured vs eager, {len(reqs)} requests: tokens equal (and equal to the served ones); "
           f"K/V rows max |diff| {worst:.4e} (tolerance {tol}, the bf16 decode tolerance)")
     return rows
 
@@ -574,17 +712,19 @@ def clocks() -> str:
     return out.stdout.strip().splitlines()[0].strip()
 
 
-def time_requests(engines, reqs, rows, card_str):
+def time_requests(engines, reqs, rows, card_str, ph="6") -> float:
+    """Prints the requests' times, the captures and the profiled steps;
+    returns the kernel ms of one captured decode step."""
     from repro_torch.serving.backend import _bucket
 
     for rid, S, Tb, times in rows:
         (cp, cd, cps, cds), (ep, ed, _, _) = times["captured"], times["eager"]
-        print(f"[6] request {rid}: prompt {S} tokens | captured: prefill {cp:.3f} ms, decode "
+        print(f"[{ph}] request {rid}: prompt {S} tokens | captured: prefill {cp:.3f} ms, decode "
               f"{Tb} steps {cd:.3f} ms ({cd / Tb:.4f} ms/step) wall; event spans prefill "
               f"{cps:.3f} ms, decode {cds:.3f} ms | eager: prefill {ep:.3f} ms, decode "
               f"{ed:.3f} ms ({ed / Tb:.4f} ms/step) wall ({card_str})")
     for name, eng in engines.items():
-        print(f"[6] {name} arm, capture wall time per shape: " + "; ".join(
+        print(f"[{ph}] {name} arm, capture wall time per shape: " + "; ".join(
             f"{key[0]}{key[1:]} {ms:.1f} ms" for key, ms in eng.model.graphs.capture_ms.items())
             + f" | {eng.model.graph_stats} ({card_str})")
 
@@ -609,7 +749,7 @@ def time_requests(engines, reqs, rows, card_str):
     eager_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels, copies, busy, _, _ = profiled(lambda: model.decode_step(params, cache, tok))
     graph_step = graph_ms(lambda: model.decode_step(params, cache, tok), calls=1, replays=steps)
-    print(f"[6] eager decode step (prompt {S}): {kernels} kernels and {copies} copies/sets "
+    print(f"[{ph}] eager decode step (prompt {S}): {kernels} kernels and {copies} copies/sets "
           f"(torch.profiler), {busy:.4f} ms of device time, {eager_ms:.4f} ms wall; idle share "
           f"{1 - busy / eager_ms:.3f}; the step as one CUDA graph {graph_step:.4f} ms on the "
           f"device ({card_str})")
@@ -644,18 +784,20 @@ def time_requests(engines, reqs, rows, card_str):
         wall, span = float(np.mean(walls[:4])), float(np.mean(spans[:4]))
         what = f"decode loop (prompt {S}, {Tb} steps)" if name == "decode" else \
             f"prefill (prompt {S})"
-        per_step = (f" ({wall / Tb:.4f} ms wall and {busy / Tb:.4f} ms of kernels a step)"
-                    if name == "decode" else "")
-        print(f"[6] captured {what}: unprofiled wall {' '.join(f'{w:.3f}' for w in walls[:4])}"
+        per_step = (f" ({wall / Tb:.4f} ms wall, {busy / Tb:.4f} ms of kernels and "
+                    f"{kernels / Tb:.1f} kernels a step)" if name == "decode" else "")
+        print(f"[{ph}] captured {what}: unprofiled wall {' '.join(f'{w:.3f}' for w in walls[:4])}"
               f" ms, event spans {' '.join(f'{s:.3f}' for s in spans[:4])} ms; clocks during "
               f"the fifth (SM, memory, power): {sampled}; profiled: {kernels} kernels and "
               f"{copies} copies/sets, {busy:.4f} ms of kernel time (trace span {trace:.4f} ms)"
               f"{per_step}; idle share {1 - busy / wall:.3f}: between the graph's kernels "
               f"{(span - busy) / wall:.3f}, on the host {(wall - span) / wall:.3f} ({card_str})")
-        print(f"[6] captured {name}, heaviest kernels (share of kernel time): {heaviest(dev)}")
+        print(f"[{ph}] captured {name}, heaviest kernels (share of kernel time): {heaviest(dev)}")
+        step_ms = busy / Tb
+    return step_ms
 
 
-def graph_memory(engines, card_str):
+def graph_memory(engines, card_str, ph="6"):
     """What each arm's graphs hold on the device: their static caches, and
     the segments of their shared memory pool (from the allocator's snapshot)."""
     segments = torch.cuda.memory_snapshot()
@@ -664,9 +806,98 @@ def graph_memory(engines, card_str):
         static = sum(t.numel() * t.element_size() for c in g.caches.values() for t in c.values())
         pool = sum(s["total_size"] for s in segments
                    if tuple(s.get("segment_pool_id", ())) == tuple(g.pool))
-        print(f"[6] {name} arm: {len(g.graphs)} graphs hold {static / 1e6:.3f} MB of static "
+        print(f"[{ph}] {name} arm: {len(g.graphs)} graphs hold {static / 1e6:.3f} MB of static "
               f"caches ({len(g.caches)}) and {pool / 1e6:.3f} MB in their memory pool "
               f"({card_str})")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the MoE family
+# ---------------------------------------------------------------------------
+
+
+def moe_ffn_share(engine, step_ms, card_str):
+    """One layer's MoE FFN at the decode shape (one token), as a CUDA graph,
+    times the layers, against the kernel time of a captured decode step."""
+    model, params = engine.backend.model, engine.backend.params
+    cfg = model.cfg
+    x = rand((1, 1, cfg.d_model), cfg.torch_dtype, 30)
+    mlp = params.layers[0].mlp
+    ms = graph_ms(lambda: mlp(x))
+    kernels, copies, busy, _, dev = profiled(lambda: mlp(x))
+    print(f"[7] MoE FFN of one layer at the decode shape (1 token): {ms:.5f} ms on the device "
+          f"(CUDA graph), {kernels} kernels and {copies} copies/sets (torch.profiler); x "
+          f"{cfg.n_layers} layers = {ms * cfg.n_layers:.4f} ms, {ms * cfg.n_layers / step_ms:.3f} "
+          f"of a captured decode step's {step_ms:.4f} ms of kernels ({card_str})")
+    print(f"[7] MoE FFN, heaviest kernels (share of its kernel time): {heaviest(dev)}")
+
+
+def moe_phase(args, card_str):
+    """Phase 7: granite-moe-1b-a400m served at full width behind the gate on
+    the captured path, held to its exact launches, to the eager path and to
+    the plain path; deepseek-moe-16b at full width and reduced depth against
+    the plain path; K2 and K3 timed at both archs' shapes. Returns the
+    kernels-line entries of the granite path."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving.backend import ServeRequest, _bucket
+
+    t0 = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    reqs = make_requests(cfg, args.requests, args.new_tokens, args.seed, ServeRequest)
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    S, tb = len(longest.prompt), _bucket(args.new_tokens, base=8)
+    # 7a. serving, both arms: one K2 launch a layer a request, one K3 launch
+    # a layer a decode step, and nothing else
+    ops.reset_counters()
+    engines, results = serve_arms(cfg, reqs, args.seed, card_str, ph="7a")
+    launches, plain = dict(ops.launches), dict(ops.plain)
+    print(json.dumps({"counters": {"path": MOE_ARCH, "launches": launches, "plain": plain}}))
+    expected = {"matmul": 0, "flash_attention": 2 * len(reqs) * cfg.n_layers,
+                "decode_attention": 2 * len(reqs) * cfg.n_layers * tb}
+    if launches != expected or max(plain.values()) != 0:
+        raise PhaseError(f"{MOE_ARCH} launches {launches}, plain {plain}; expected {expected} "
+                         f"launches and no plain call")
+    print(f"[7a] launches exactly as the path needs: {expected}; no plain call")
+    check_outputs(cfg, reqs, results, ph="7a")
+    # 7b. captured against eager
+    rows = captured_vs_eager(engines["baseline"], reqs, results["baseline"], ph="7b")
+    # 7c. kernel path against plain path: f32, then bf16 on the serving weights
+    f32_kernel_vs_plain(cfg, prompt_of(reqs[0]), args.new_tokens, args.seed, ph="7c")
+    be = engines["baseline"].backend
+    bf16_kernel_vs_plain(be.model, be.params, prompt_of(longest), ph="7c")
+    # times: requests, captures, profiled steps, the MoE FFN's share, memory
+    step_ms = time_requests(engines, reqs, rows, card_str, ph="7")
+    moe_ffn_share(engines["baseline"], step_ms, card_str)
+    graph_memory(engines, card_str, ph="7")
+    cache_len = _bucket(S + tb, base=8)
+    kernels = report_rows(
+        [("flash_attention", flash_row((1, cfg.n_heads, cfg.n_kv_heads, S, cfg.head_dim))),
+         ("decode_attention", decode_row((1, cfg.n_heads, cfg.n_kv_heads, cache_len, cfg.head_dim),
+                                         S + tb // 2))],
+        launches, card_str, "7", suffix=f"[{MOE_ARCH}]")
+    del engines, results, be
+    torch.cuda.empty_cache()
+    # 7d. deepseek-moe-16b: full width, DEEPSEEK_LAYERS of its layers; the
+    # shared experts, head_dim 128 and group 1 through K2 and K3
+    ds = dataclasses.replace(get_config("deepseek-moe-16b"), n_layers=DEEPSEEK_LAYERS)
+    prompt = torch.tensor(np.random.RandomState(args.seed).randint(0, ds.vocab, size=(1, S)),
+                          dtype=torch.int32, device=DEVICE)
+    from repro_torch.models.model import build_model
+
+    mk = build_model(ds)
+    params = mk.init(args.seed)
+    bf16_kernel_vs_plain(mk, params, prompt, ph="7d")
+    del mk, params
+    torch.cuda.empty_cache()
+    f32_kernel_vs_plain(ds, prompt, DEEPSEEK_STEPS, args.seed, ph="7d")
+    report_rows(
+        [("flash_attention", flash_row((1, ds.n_heads, ds.n_kv_heads, S, ds.head_dim))),
+         ("decode_attention", decode_row((1, ds.n_heads, ds.n_kv_heads, cache_len, ds.head_dim),
+                                         S + tb // 2))],
+        None, card_str, "7d", suffix="[deepseek-moe-16b]")
+    print(f"[7] phase 7 took {time.perf_counter() - t0:.1f} s")
+    return kernels
 
 
 def main() -> int:
@@ -713,7 +944,7 @@ def main() -> int:
 
     # 2. kernels against their plain versions
     failures: list[str] = []
-    main_err = check_kernels(main_shapes, failures)
+    check_kernels(main_shapes, failures)
     if failures:
         raise PhaseError(f"{len(failures)} kernel comparisons outside tolerance")
 
@@ -740,13 +971,19 @@ def main() -> int:
     rows = captured_vs_eager(engines["baseline"], reqs, results["baseline"])
 
     # 5. kernel path against plain path at full width: f32, then bf16
-    f32_kernel_vs_plain(cfg, reqs[0], args.seed)
-    bf16_kernel_vs_plain(engines["baseline"], max(reqs, key=lambda r: len(r.prompt)))
+    f32_kernel_vs_plain(cfg, prompt_of(reqs[0]), args.new_tokens, args.seed)
+    bf16_kernel_vs_plain(engines["baseline"].backend.model, engines["baseline"].backend.params,
+                         prompt_of(max(reqs, key=lambda r: len(r.prompt))))
 
     # 6. times
-    kernels = time_kernels(main_shapes, main_err, launches, card_str)
+    kernels = time_kernels(main_shapes, launches, card_str)
     time_requests(engines, reqs, rows, card_str)
     graph_memory(engines, card_str)
+    del engines, results
+    torch.cuda.empty_cache()
+
+    # 7. the MoE family
+    kernels += moe_phase(args, card_str)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_str)

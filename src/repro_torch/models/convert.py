@@ -1,12 +1,15 @@
 """Carry a ``repro`` parameter tree into the port's modules.
 
 The tree is what ``jax.tree_util.tree_map(np.asarray, params)`` gives for a
-dense model: ``embed``, ``final_norm``, optional ``unembed`` (absent when the
-embeddings are tied) and ``layers``, whose leaves are stacked over the layer
-axis; ``layers["attn"]`` is the ``AttnParams`` NamedTuple, read by its field
-names, with ``q_norm``/``k_norm`` ``None`` without qk-norm. Layer ``i`` of the
-port takes slice ``i`` of every stacked leaf. Nothing here imports ``jax``
-or ``repro``.
+dense or MoE model: ``embed``, ``final_norm``, optional ``unembed`` (absent
+when the embeddings are tied) and ``layers``, whose leaves are stacked over
+the layer axis; ``layers["attn"]`` is the ``AttnParams`` NamedTuple, read by
+its field names, with ``q_norm``/``k_norm`` ``None`` without qk-norm;
+``layers["mlp"]`` holds a SwiGLU's ``w_gate``/``w_up``/``w_down``, or an
+MoE's ``router``, expert weights and, with shared experts, a ``shared``
+SwiGLU. Layer ``i`` of the port takes slice ``i`` of every stacked leaf. A
+tree of another family than the model's (an MoE tree for a dense model, or
+the other way round) is refused. Nothing here imports ``jax`` or ``repro``.
 """
 from __future__ import annotations
 
@@ -15,9 +18,11 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .moe import MoE
 from .transformer import Transformer
 
 _ATTN_FIELDS = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
+_SWIGLU_FIELDS = ("w_gate", "w_up", "w_down")
 
 
 def _put(dst: Optional[torch.Tensor], src: Any, name: str) -> None:
@@ -36,6 +41,12 @@ def _put(dst: Optional[torch.Tensor], src: Any, name: str) -> None:
 @torch.no_grad()
 def load_jax_params(model: Transformer, tree: dict) -> Transformer:
     """Copy ``tree`` into ``model`` in place; returns ``model``."""
+    tree_moe = "router" in tree["layers"]["mlp"]
+    model_moe = any(isinstance(blk.mlp, MoE) for blk in model.layers)
+    if tree_moe != model_moe:
+        kind = {True: "an MoE", False: "a dense"}
+        raise ValueError(f"layers.mlp: the tree holds {kind[tree_moe]} FFN, the model "
+                         f"{kind[model_moe]} one")
     _put(model.embed, tree["embed"], "embed")
     _put(model.final_norm, tree["final_norm"], "final_norm")
     _put(model.unembed, tree.get("unembed"), "unembed")
@@ -50,6 +61,17 @@ def load_jax_params(model: Transformer, tree: dict) -> Transformer:
         for f in _ATTN_FIELDS:
             leaf = getattr(attn, f)
             _put(getattr(blk.attn, f), None if leaf is None else leaf[i], f"layers[{i}].attn.{f}")
-        for f in ("w_gate", "w_up", "w_down"):
-            _put(getattr(blk.mlp, f), mlp[f][i], f"layers[{i}].mlp.{f}")
+        _put_mlp(blk.mlp, mlp, i, f"layers[{i}].mlp")
     return model
+
+
+def _put_mlp(dst, mlp: dict, i: int, name: str) -> None:
+    fields = ("router",) + _SWIGLU_FIELDS if isinstance(dst, MoE) else _SWIGLU_FIELDS
+    for f in fields:
+        _put(getattr(dst, f), mlp[f][i], f"{name}.{f}")
+    if isinstance(dst, MoE):
+        if (dst.shared is None) != ("shared" not in mlp):
+            raise ValueError(f"{name}.shared: present on one side only")
+        if dst.shared is not None:
+            for f in _SWIGLU_FIELDS:
+                _put(getattr(dst.shared, f), mlp["shared"][f][i], f"{name}.shared.{f}")

@@ -29,13 +29,17 @@ the capture stream, so that cuBLAS makes its handle and workspace for that
 stream outside a capture. Nothing else is warmed up: no kernel of the port
 is launched outside a request. A capture records launches and runs none;
 each replay counts what its capture recorded
-(:func:`repro_torch.kernels._build.replayed`).
+(:func:`repro_torch.kernels._build.replayed`). Python's cycle collector runs
+before a capture and not during it, so that it cannot free earlier CUDA
+objects (another graph, tensors of an earlier request) inside the capture
+(``torch.cuda.graph`` no longer collects first by default).
 
 A failed capture raises; nothing falls back to eager execution.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Callable
 
@@ -120,10 +124,17 @@ class GraphCache:
                 x @ x
         static_tokens = torch.empty(tokens.shape, dtype=tokens.dtype, device=device)
         graph = torch.cuda.CUDAGraph()
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         t0 = time.perf_counter()
-        with _build.recording() as recorded:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self._stream):
-                output = body(static_tokens)
+        try:
+            with _build.recording() as recorded:
+                with torch.cuda.graph(graph, pool=self.pool, stream=self._stream):
+                    output = body(static_tokens)
+        finally:
+            if collecting:
+                gc.enable()
         self.capture_ms[key] = (time.perf_counter() - t0) * 1e3
         self.stats["captures"] += 1
         return _Graph(graph, static_tokens, output, recorded)

@@ -1,8 +1,10 @@
-"""Shared neural building blocks (plain PyTorch ops on tensors)."""
+"""Shared neural building blocks (plain PyTorch ops on tensors, and the
+SwiGLU weights that the dense FFN and the MoE's shared experts hold)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def normal_init(shape, scale: float, dtype: torch.dtype, generator: torch.Generator) -> torch.Tensor:
@@ -37,6 +39,29 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP: down( silu(x@gate) * (x@up) )."""
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+class SwiGLU(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype, device: torch.device) -> None:
+        super().__init__()
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                                requires_grad=False)
+
+        self.w_gate = param(d_model, d_ff)
+        self.w_up = param(d_model, d_ff)
+        self.w_down = param(d_ff, d_model)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        d_model, d_ff = self.w_gate.shape
+        for w, scale in ((self.w_gate, d_model**-0.5), (self.w_up, d_model**-0.5),
+                         (self.w_down, d_ff**-0.5)):
+            w.copy_(normal_init(tuple(w.shape), scale, w.dtype, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return swiglu(x, self.w_gate, self.w_up, self.w_down)
 
 
 def unembed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -2,6 +2,7 @@
 
     model = build_model(cfg)                       # on the card; device="cpu" for the CPU
     params = model.init(seed)
+    logits, aux = model.forward(params, batch)              # full forward, aux loss
     cache = model.init_cache(batch_size, max_len)
     logits, cache = model.prefill(params, batch, cache)        # inference prefill
     logits, cache = model.decode_step(params, cache, tokens)   # serve_step
@@ -14,7 +15,8 @@ counterparts:
     tokens, cache = model.decode_tokens(params, cache, tok, n_steps)
 
 ``params`` is a :class:`~repro_torch.models.transformer.Transformer`
-module. Only the dense family (dense, vlm) is ported; the others raise.
+module. The transformer families (dense, moe, vlm) are ported; the others
+raise.
 
 ``decode_tokens`` is the greedy loop that ``repro`` rolls into one
 ``lax.scan``: a fixed-shape loop of ``n_steps`` steps whose argmax stays on
@@ -44,7 +46,6 @@ from . import transformer
 from .graphs import GraphCache
 
 _NOT_PORTED = {
-    "moe": "the MoE FFN is ROADMAP item M6",
     "xlstm": "the recurrent families are ROADMAP item M9",
     "hybrid": "the recurrent families are ROADMAP item M9",
     "encdec": "the encoder-decoder family is ROADMAP item M7",
@@ -65,7 +66,8 @@ class Model:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return transformer.Transformer(self.cfg, self.device).init(gen)
 
-    def forward(self, params, batch) -> torch.Tensor:
+    def forward(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+        """(logits (B, S, V), aux loss), as ``repro``'s ``Model.forward``."""
         return transformer.forward(self.cfg, params, batch["tokens"],
                                    use_kernel=self.use_kernels)
 
@@ -138,7 +140,7 @@ def build_model(cfg: ArchConfig, *, device: Optional[Union[str, torch.device]] =
     fam = cfg.family
     if fam in _NOT_PORTED:
         raise NotImplementedError(f"{cfg.arch_id}: {_NOT_PORTED[fam]}, not ported yet")
-    if fam not in ("dense", "vlm"):
+    if fam not in ("dense", "moe", "vlm"):
         raise ValueError(f"unknown family {fam!r}")
     return Model(cfg=cfg, device=resolve_device(device), use_kernels=use_kernels)
 

@@ -1,15 +1,19 @@
-"""Dense decoder-only transformer with KV-cache prefill/decode and
-sliding-window support.
+"""Dense and MoE decoder-only transformer (the FFN is pluggable) with
+KV-cache prefill/decode and sliding-window support.
 
 Used directly by: llama3.2-1b, phi3-mini, qwen3, mistral-large-123b and
-chameleon-34b (early-fusion VLM: image tokens are ordinary vocab ids). The
-MoE FFN of deepseek-moe-16b / granite-moe-1b is not ported yet (ROADMAP M6).
+chameleon-34b (early-fusion VLM: image tokens are ordinary vocab ids), and
+with MoE FFNs (:mod:`repro_torch.models.moe`) by deepseek-moe-16b and
+granite-moe-1b-a400m.
 
 Layers are per-layer modules in an ``nn.ModuleList`` in place of
 ``repro``'s stacked, vmap-initialised layer pytree; layer ``i`` holds slice
 ``i`` of each stacked weight (see :mod:`repro_torch.models.convert`). The
 KV cache is preallocated and written in place: prefill fills the prompt's
 rows, each decode step one row a sequence, and ``lengths`` advances in place.
+:func:`forward` returns the layers' summed auxiliary loss beside the logits
+(the MoE router's load-balance and z-loss terms; 0 for a dense FFN); prefill
+and decode drop it, as ``repro``'s do.
 """
 from __future__ import annotations
 
@@ -17,31 +21,9 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
+from . import moe
 from .attention import Attention, decode_attention_step, prefill_attention
-from .layers import normal_init, rms_norm, swiglu, unembed
-
-
-class SwiGLU(nn.Module):
-    def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype, device: torch.device) -> None:
-        super().__init__()
-
-        def param(*shape):
-            return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                                requires_grad=False)
-
-        self.w_gate = param(d_model, d_ff)
-        self.w_up = param(d_model, d_ff)
-        self.w_down = param(d_ff, d_model)
-
-    @torch.no_grad()
-    def init(self, generator: torch.Generator) -> None:
-        d_model, d_ff = self.w_gate.shape
-        for w, scale in ((self.w_gate, d_model**-0.5), (self.w_up, d_model**-0.5),
-                         (self.w_down, d_ff**-0.5)):
-            w.copy_(normal_init(tuple(w.shape), scale, w.dtype, generator))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return swiglu(x, self.w_gate, self.w_up, self.w_down)
+from .layers import SwiGLU, normal_init, rms_norm, unembed
 
 
 class Block(nn.Module):
@@ -54,7 +36,8 @@ class Block(nn.Module):
                               cfg.qk_norm, dt, device)
         self.ln2 = nn.Parameter(torch.empty(cfg.d_model, dtype=dt, device=device),
                                 requires_grad=False)
-        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, dt, device)
+        self.mlp = (moe.MoE(cfg, device) if cfg.moe is not None
+                    else SwiGLU(cfg.d_model, cfg.d_ff, dt, device))
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
@@ -65,7 +48,7 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The parameters of one dense model (``repro``'s ``params`` dict)."""
+    """The parameters of one model (``repro``'s ``params`` dict)."""
 
     def __init__(self, cfg: ArchConfig, device: torch.device) -> None:
         super().__init__()
@@ -103,13 +86,24 @@ class Transformer(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _layer_prefill(cfg: ArchConfig, p: Block, x, positions, window, use_kernel):
+def _mlp_apply(cfg: ArchConfig, p: Block, x):
+    """Returns (y, aux_loss)."""
+    if cfg.moe is not None:
+        return moe.apply_moe(cfg, p.mlp, x)
+    return p.mlp(x), 0.0
+
+
+def _layer_prefill(cfg: ArchConfig, p: Block, x, positions, window, use_kernel, with_aux):
+    """``with_aux=False`` skips the aux loss that a caller would drop (in
+    ``repro``, jit removes it as dead code) and returns 0.0 for it."""
     h, (k, v) = prefill_attention(
         p.attn, rms_norm(x, p.ln1, cfg.norm_eps), positions,
         rope_theta=cfg.rope_theta, eps=cfg.norm_eps, window=window, use_kernel=use_kernel,
     )
     x = x + h
-    return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps)), (k, v)
+    h = rms_norm(x, p.ln2, cfg.norm_eps)
+    m, aux = _mlp_apply(cfg, p, h) if with_aux else (p.mlp(h), 0.0)
+    return x + m, (k, v), aux
 
 
 def _layer_decode(cfg: ArchConfig, p: Block, x, k_cache, v_cache, lengths, window, use_kernel):
@@ -118,6 +112,7 @@ def _layer_decode(cfg: ArchConfig, p: Block, x, k_cache, v_cache, lengths, windo
         rope_theta=cfg.rope_theta, eps=cfg.norm_eps, window=window, use_kernel=use_kernel,
     )
     x = x + h
+    # the FFN alone: repro computes the aux here and drops it (jit removes it)
     return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
 
 
@@ -136,15 +131,18 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 
 def forward(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, *,
-            use_kernel: bool = True) -> torch.Tensor:
-    """Full forward pass over ``tokens`` (B, S). Returns logits (B, S, V)."""
+            use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full forward pass over ``tokens`` (B, S). Returns (logits (B, S, V),
+    the layers' summed aux loss as a 0-dim f32 tensor)."""
     window = cfg.sliding_window
     x = _embed(params, tokens)
     positions = _positions(tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in params.layers:
-        x, _ = _layer_prefill(cfg, p, x, positions, window, use_kernel)
+        x, _, layer_aux = _layer_prefill(cfg, p, x, positions, window, use_kernel, True)
+        aux = aux + layer_aux
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return unembed(x, params.out_proj())
+    return unembed(x, params.out_proj()), aux
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
@@ -170,7 +168,7 @@ def prefill(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, cache, *
     x = _embed(params, tokens)
     positions = _positions(tokens)
     for i, p in enumerate(params.layers):
-        x, (k, v) = _layer_prefill(cfg, p, x, positions, window, use_kernel)
+        x, (k, v), _ = _layer_prefill(cfg, p, x, positions, window, use_kernel, False)
         if window is not None and S > S_c:
             # keep the last `window` positions; ring alignment: slot = pos % window
             shift = (S - S_c) % S_c

@@ -91,6 +91,29 @@ def test_captured_path_matches_eager_loop(dtype):
     assert torch.equal(cache["lengths"], want["lengths"])
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-moe-16b"])
+def test_moe_captured_path_matches_eager_loop(arch):
+    """The MoE FFN's dense dispatch (top-k, queue positions, capacity masks)
+    is captured with the rest of the decode loop: no host sync in it."""
+    m = build_model(dataclasses.replace(get_smoke_config(arch), dtype="bfloat16"))
+    params = m.init(0)
+    L, S, cache_len, T = m.cfg.n_layers, 45, 64, 16
+    prompt = _prompt(S, m.cfg.vocab, 6)
+    cache = m.static_cache(1, cache_len)
+    _build.reset_counters()
+    logits, _ = m.prefill_jit(params, {"tokens": prompt}, cache)
+    toks, _ = m.decode_tokens(params, cache, prompt[:, -1:], T)
+    torch.cuda.synchronize()
+    assert _build.launches == {"matmul": 0, "flash_attention": L, "decode_attention": L * T}
+    assert sum(_build.plain.values()) == 0
+    want_logits, want_toks, want = _eager(m, params, prompt, cache_len, T)
+    assert m.graph_stats == {"captures": 2, "replays": 2, "dropped": 0}
+    assert torch.equal(toks, want_toks)
+    _close(logits, want_logits, "bfloat16", f"{arch} prefill logits")
+    for n in ("k", "v"):
+        _close(cache[n][:, :, :, :S + T], want[n][:, :, :, :S + T], "bfloat16", f"{arch} {n} rows")
+
+
 def test_launch_counts_are_replays_times_what_was_captured():
     m = _model()
     params = m.init(0)

@@ -23,6 +23,7 @@ VERBATIM = [
     "faults/__init__.py", "analysis/sanitizer.py", "sim/variation.py",
     "sim/platform.py", "sim/workload.py", "sim/metrics.py", "sim/experiment.py",
     "sim/arrivals.py", "sim/workflow_dag.py", "configs/registry.py",
+    "fleet/__init__.py", "fleet/policies.py", "fleet/resilience.py", "fleet/router.py",
 ] + sorted(
     f"configs/{p.name}" for p in (REF / "configs").glob("*.py")
     if p.name not in ("base.py", "registry.py")

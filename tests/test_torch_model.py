@@ -124,8 +124,10 @@ def test_prefill_decode_step_and_decode_tokens_match(pair):
 def test_forward_logits_match(pair):
     jcfg, jm, jp, tm, tp = pair
     tokens = np.random.RandomState(8).randint(0, jcfg.vocab, size=(2, 13)).astype(np.int32)
-    jlog, _ = jm.forward(jp, {"tokens": jnp.asarray(tokens)})
-    _close(tm.forward(tp, {"tokens": torch.tensor(tokens)}), jlog)
+    jlog, jaux = jm.forward(jp, {"tokens": jnp.asarray(tokens)})
+    tlog, taux = tm.forward(tp, {"tokens": torch.tensor(tokens)})
+    _close(tlog, jlog)
+    _close(taux, jaux)  # 0 for a dense FFN, as in repro
 
 
 def test_model_on_cpu_goes_through_the_plain_versions(pair):
@@ -154,12 +156,31 @@ def test_init_is_seeded_with_the_reference_scales():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("deepseek-moe-16b", "M6"), ("granite-moe-1b-a400m", "M6"), ("xlstm-1.3b", "M9"),
-    ("zamba2-1.2b", "M9"), ("whisper-small", "M7"),
+    ("xlstm-1.3b", "M9"), ("zamba2-1.2b", "M9"), ("whisper-small", "M7"),
 ])
 def test_unported_families_raise(arch, item):
     with pytest.raises(NotImplementedError, match=item):
         build_model(get_smoke_config(arch), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "granite-moe-1b-a400m"])
+def test_moe_families_build_and_init(arch):
+    cfg = get_smoke_config(arch)
+    m = build_model(cfg, device="cpu")
+    p = m.init(0)
+    assert torch.equal(p.layers[1].mlp.w_up, m.init(0).layers[1].mlp.w_up)
+    mlp, moe = p.layers[0].mlp, cfg.moe
+    assert mlp.router.dtype == torch.float32 and mlp.w_gate.dtype == cfg.torch_dtype
+    assert tuple(mlp.router.shape) == (cfg.d_model, moe.n_experts)
+    assert tuple(mlp.w_down.shape) == (moe.n_experts, moe.d_expert, cfg.d_model)
+    assert (mlp.shared is None) == (moe.n_shared == 0)
+    assert float(mlp.w_gate.std()) == pytest.approx(cfg.d_model**-0.5, rel=0.05)
+    assert float(mlp.w_down.std()) == pytest.approx(moe.d_expert**-0.5, rel=0.05)
+    if mlp.shared is not None:  # init_moe's d_e^-0.5, not (n_shared * d_e)^-0.5
+        assert float(mlp.shared.w_down.std()) == pytest.approx(moe.d_expert**-0.5, rel=0.05)
+    logits, aux = m.forward(p, {"tokens": torch.arange(7, dtype=torch.int32)[None]})
+    assert logits.shape == (1, 7, cfg.vocab) and torch.isfinite(logits).all()
+    assert aux.shape == () and float(aux) > 0.0
 
 
 def test_full_width_config_is_llama_1b():

@@ -79,13 +79,14 @@ def _assert_identical(je, te, jres, tres):
         assert b.tokens.dtype == np.int32
 
 
-@pytest.mark.parametrize("case,knobs", [
-    ("classic", {}),
-    ("adaptive", {}),
-    ("reprobe", {"contention_rho": 0.9}),
+@pytest.mark.parametrize("case,knobs,arch", [
+    pytest.param("classic", {}, "llama3.2-1b", id="classic-knobs0"),
+    pytest.param("adaptive", {}, "llama3.2-1b", id="adaptive-knobs1"),
+    pytest.param("reprobe", {"contention_rho": 0.9}, "llama3.2-1b", id="reprobe-knobs2"),
+    pytest.param("classic", {}, "granite-moe-1b-a400m", id="classic-granite-moe"),
 ])
-def test_engine_matches_reference_exactly(case, knobs):
-    je, te, jres, tres = _serve_both("llama3.2-1b", case, **knobs)
+def test_engine_matches_reference_exactly(case, knobs, arch):
+    je, te, jres, tres = _serve_both(arch, case, **knobs)
     _assert_identical(je, te, jres, tres)
     assert te.jit_stats == je.jit_stats
 
