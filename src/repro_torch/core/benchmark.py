@@ -74,18 +74,19 @@ class MatmulProbe:
         return out
 
     def run(self) -> float:
-        if torch.device(self.device).type != "cuda":
-            t0 = time.perf_counter()
-            self._compute()
-            return (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize(self.device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+        """Host wall time in ms from before the first launch until the
+        device has finished (``torch.cuda.synchronize``), as
+        ``repro.core.benchmark.MatmulProbe.run`` reads the host clock around
+        ``block_until_ready``; launch and host time are in it. Work queued
+        before the call is finished first and not counted."""
+        cuda = torch.device(self.device).type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
         self._compute()
-        end.record()
-        end.synchronize()
-        return float(start.elapsed_time(end))
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        return (time.perf_counter() - t0) * 1e3
 
 
 @dataclasses.dataclass

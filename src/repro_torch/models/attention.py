@@ -1,4 +1,6 @@
-"""GQA attention: causal prefill and single-token decode against a KV cache.
+"""GQA attention: prefill (causal, bidirectional, sliding-window, or cross
+attention over given keys and values) and single-token decode against a KV
+cache.
 
 Attention runs through the dispatcher, :mod:`repro_torch.kernels.ops`: on a
 CUDA tensor the prefill goes to the flash-attention kernel and each decode
@@ -59,17 +61,25 @@ def _write_cache_row(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor)
     cache[rows, :, slot.long()] = new[:, :, 0].to(cache.dtype)
 
 
-def _project_qkv(p: Attention, x: torch.Tensor, positions: torch.Tensor,
-                 rope_theta: float, eps: float):
-    """x: (B, S, d) -> q (B, S, H, hd), k/v (B, S, K, hd)."""
+def _project_q(p: Attention, x: torch.Tensor, positions: torch.Tensor,
+               rope_theta: float, eps: float, use_rope: bool) -> torch.Tensor:
+    """x: (B, S, d) -> q (B, S, H, hd)."""
     q = torch.einsum("bsd,dhk->bshk", x, p.wq)
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
     if p.q_norm is not None:
         q = rms_norm(q, p.q_norm, eps)
+    return rope(q, positions, rope_theta) if use_rope else q
+
+
+def _project_qkv(p: Attention, x: torch.Tensor, positions: torch.Tensor,
+                 rope_theta: float, eps: float, use_rope: bool = True):
+    """x: (B, S, d) -> q (B, S, H, hd), k/v (B, S, K, hd)."""
+    q = _project_q(p, x, positions, rope_theta, eps, use_rope)
+    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
+    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
+    if p.k_norm is not None:
         k = rms_norm(k, p.k_norm, eps)
-    q = rope(q, positions, rope_theta)
-    k = rope(k, positions, rope_theta)
+    if use_rope:
+        k = rope(k, positions, rope_theta)
     return q, k, v
 
 
@@ -80,15 +90,24 @@ def prefill_attention(
     *,
     rope_theta: float,
     eps: float,
+    causal: bool = True,
     window: Optional[int] = None,
+    use_rope: bool = True,
+    cross_kv: Optional[tuple[torch.Tensor, torch.Tensor]] = None,  # (B, S_kv, K, hd)
     use_kernel: bool = True,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """Causal self-attention over the prompt. Returns (out (B,S,d), (k, v)
-    in (B,K,S,hd) layout).
+    """Self-attention over the sequence (causal, or bidirectional with
+    ``causal=False``), or with ``cross_kv`` attention of the sequence's
+    queries over given keys and values. Returns (out (B,S,d), (k, v) in
+    (B,K,S,hd) layout).
 
     A sliding window has no kernel yet (only zamba2, a hybrid, uses one):
     on a CUDA tensor it raises; on the CPU it takes the plain version."""
-    q, k, v = _project_qkv(p, x, positions, rope_theta, eps)
+    if cross_kv is None:
+        q, k, v = _project_qkv(p, x, positions, rope_theta, eps, use_rope)
+    else:
+        q = _project_q(p, x, positions, rope_theta, eps, use_rope)
+        k, v = cross_kv
     # (B, heads, S, hd) layout for the kernels
     qh = q.transpose(1, 2).contiguous()
     kh = k.transpose(1, 2).contiguous()
@@ -97,9 +116,9 @@ def prefill_attention(
         if use_kernel and qh.is_cuda:
             raise NotImplementedError(
                 "sliding-window prefill has no CUDA kernel yet (hybrid family, ROADMAP M9)")
-        out = ref.attention_ref(qh, kh, vh, causal=True, window=window)
+        out = ref.attention_ref(qh, kh, vh, causal=causal, window=window)
     else:
-        out = ops.flash_attention(qh, kh, vh, causal=True, use_kernel=use_kernel)
+        out = ops.flash_attention(qh, kh, vh, causal=causal, use_kernel=use_kernel)
     y = torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), p.wo)
     return y, (kh, vh)
 
@@ -114,6 +133,8 @@ def decode_attention_step(
     rope_theta: float,
     eps: float,
     window: Optional[int] = None,
+    use_rope: bool = True,
+    update_cache: bool = True,
     use_kernel: bool = True,
 ) -> torch.Tensor:
     """One decode step. Returns out (B,1,d); the new token's K and V rows are
@@ -124,15 +145,23 @@ def decode_attention_step(
     to the min(lengths, window) most recent entries, which the decode kernel
     computes as it is. RoPE uses absolute positions so rotations stay
     consistent in the ring.
+
+    With ``update_cache=False`` (cross-attention over the encoder's K/V)
+    nothing is written and the step attends over the first min(lengths, S)
+    rows; the token's own K and V are not computed, since nothing reads them.
     """
     S = k_cache.shape[2]
     positions = lengths[:, None]  # (B, 1) absolute position of the new token
-    q, k_new, v_new = _project_qkv(p, x, positions, rope_theta, eps)
+    if update_cache:
+        q, k_new, v_new = _project_qkv(p, x, positions, rope_theta, eps, use_rope)
+        slot = lengths % S if window is not None else lengths
+        _write_cache_row(k_cache, k_new.transpose(1, 2), slot)
+        _write_cache_row(v_cache, v_new.transpose(1, 2), slot)
+        valid = torch.clamp(lengths + 1, max=S)
+    else:
+        q = _project_q(p, x, positions, rope_theta, eps, use_rope)
+        valid = torch.clamp(lengths, max=S)
     qh = q.transpose(1, 2).contiguous()       # (B, H, 1, hd)
-    slot = lengths % S if window is not None else lengths
-    _write_cache_row(k_cache, k_new.transpose(1, 2), slot)
-    _write_cache_row(v_cache, v_new.transpose(1, 2), slot)
-    valid = torch.clamp(lengths + 1, max=S)
     out = ops.decode_attention(qh, k_cache, v_cache, valid.to(torch.int32),
                                use_kernel=use_kernel)
     return torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), p.wo)

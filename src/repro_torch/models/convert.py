@@ -7,17 +7,25 @@ the layer axis; ``layers["attn"]`` is the ``AttnParams`` NamedTuple, read by
 its field names, with ``q_norm``/``k_norm`` ``None`` without qk-norm;
 ``layers["mlp"]`` holds a SwiGLU's ``w_gate``/``w_up``/``w_down``, or an
 MoE's ``router``, expert weights and, with shared experts, a ``shared``
-SwiGLU. Layer ``i`` of the port takes slice ``i`` of every stacked leaf. A
-tree of another family than the model's (an MoE tree for a dense model, or
-the other way round) is refused. Nothing here imports ``jax`` or ``repro``.
+SwiGLU. Layer ``i`` of the port takes slice ``i`` of every stacked leaf.
+
+An encoder-decoder tree (whisper-small) holds ``embed``, ``encoder`` (``ln1``,
+``attn``, ``ln2``, ``mlp``), ``enc_norm``, ``decoder`` (``ln1``,
+``self_attn``, ``ln_x``, ``cross_attn``, ``ln2``, ``mlp``), ``final_norm``
+and ``unembed``, stacked over the layer axis in the same way.
+
+A tree of another family than the model's (an MoE tree for a dense model,
+an encoder-decoder tree for a transformer, or the other way round) is
+refused. Nothing here imports ``jax`` or ``repro``.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
 
+from .encdec import EncDec
 from .moe import MoE
 from .transformer import Transformer
 
@@ -38,9 +46,32 @@ def _put(dst: Optional[torch.Tensor], src: Any, name: str) -> None:
     dst.copy_(torch.tensor(arr).to(dst.dtype))  # copies: the source may be read-only
 
 
+def _family(tree: dict, model) -> None:
+    kind = {True: "an encoder-decoder", False: "a decoder-only"}
+    tree_encdec, model_encdec = "encoder" in tree, isinstance(model, EncDec)
+    if tree_encdec != model_encdec:
+        raise ValueError(f"the tree holds {kind[tree_encdec]} model, the model is "
+                         f"{kind[model_encdec]} one")
+
+
+def _put_attn(dst, attn, i: int, name: str) -> None:
+    for f in _ATTN_FIELDS:
+        leaf = getattr(attn, f)
+        _put(getattr(dst, f), None if leaf is None else leaf[i], f"{name}.{f}")
+
+
+def _n_layers(stack: dict, modules, name: str) -> None:
+    n = np.asarray(stack["ln1"]).shape[0]
+    if n != len(modules):
+        raise ValueError(f"{name}: the tree has {n} layers, the model {len(modules)}")
+
+
 @torch.no_grad()
-def load_jax_params(model: Transformer, tree: dict) -> Transformer:
+def load_jax_params(model: Union[Transformer, EncDec], tree: dict):
     """Copy ``tree`` into ``model`` in place; returns ``model``."""
+    _family(tree, model)
+    if isinstance(model, EncDec):
+        return _load_encdec(model, tree)
     tree_moe = "router" in tree["layers"]["mlp"]
     model_moe = any(isinstance(blk.mlp, MoE) for blk in model.layers)
     if tree_moe != model_moe:
@@ -51,17 +82,29 @@ def load_jax_params(model: Transformer, tree: dict) -> Transformer:
     _put(model.final_norm, tree["final_norm"], "final_norm")
     _put(model.unembed, tree.get("unembed"), "unembed")
     layers = tree["layers"]
-    attn, mlp = layers["attn"], layers["mlp"]
-    n = np.asarray(layers["ln1"]).shape[0]
-    if n != len(model.layers):
-        raise ValueError(f"tree has {n} layers, the model {len(model.layers)}")
+    _n_layers(layers, model.layers, "layers")
     for i, blk in enumerate(model.layers):
         _put(blk.ln1, layers["ln1"][i], f"layers[{i}].ln1")
         _put(blk.ln2, layers["ln2"][i], f"layers[{i}].ln2")
-        for f in _ATTN_FIELDS:
-            leaf = getattr(attn, f)
-            _put(getattr(blk.attn, f), None if leaf is None else leaf[i], f"layers[{i}].attn.{f}")
-        _put_mlp(blk.mlp, mlp, i, f"layers[{i}].mlp")
+        _put_attn(blk.attn, layers["attn"], i, f"layers[{i}].attn")
+        _put_mlp(blk.mlp, layers["mlp"], i, f"layers[{i}].mlp")
+    return model
+
+
+def _load_encdec(model: EncDec, tree: dict) -> EncDec:
+    for name in ("embed", "enc_norm", "final_norm", "unembed"):
+        _put(getattr(model, name), tree[name], name)
+    for stack, modules, attns in (("encoder", model.encoder, ("attn",)),
+                                  ("decoder", model.decoder, ("self_attn", "cross_attn"))):
+        layers = tree[stack]
+        _n_layers(layers, modules, stack)
+        for i, blk in enumerate(modules):
+            for norm in ("ln1", "ln_x", "ln2"):
+                if hasattr(blk, norm):
+                    _put(getattr(blk, norm), layers[norm][i], f"{stack}[{i}].{norm}")
+            for a in attns:
+                _put_attn(getattr(blk, a), layers[a], i, f"{stack}[{i}].{a}")
+            _put_mlp(blk.mlp, layers["mlp"], i, f"{stack}[{i}].mlp")
     return model
 
 

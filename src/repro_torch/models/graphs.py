@@ -8,13 +8,17 @@ prefill per ``(B, S, cache_len)``, the whole greedy decode loop per
 ``(B, cache_len, n_steps)``. A graph keeps the addresses it was captured
 with, so its inputs and outputs are static buffers:
 
-* one KV cache ``{k, v, lengths}`` per ``(B, cache_len)``
-  (:meth:`GraphCache.static_cache`), which the prefill graphs of that bucket
-  write and its decode graphs read and extend; a caller that passes another
-  cache has it copied in before the replay and back after it;
-* each graph's token input, which the caller's tokens are copied into, and
-  its output (prefill's last-token logits, the decode loop's ``(B,
-  n_steps)`` int32 tokens), cloned for the caller.
+* one cache per ``(B, cache_len)`` (:meth:`GraphCache.static_cache`):
+  ``{k, v, lengths}``, and for the encoder-decoder family also the cross
+  K/V ``cross_k``/``cross_v`` of the encoder's frames. The prefill graphs of
+  that bucket write it and its decode graphs read and extend it; a caller
+  that passes another cache has every entry copied in before the replay and
+  back after it;
+* each graph's input, which the caller's is copied into (token ids, or
+  an encdec prefill's f32 frames), and its output (prefill's last-token
+  logits, the decode loop's ``(B, n_steps)`` int32 tokens), cloned for the
+  caller. An encdec prefill has no output: its graph returns None, and what
+  it computed is in the static cache.
 
 The weights are read where they lay at capture. When the caller passes
 other weight tensors (another module, or a parameter replaced) the graphs
@@ -41,7 +45,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -51,8 +55,8 @@ from ..kernels import _build, ops
 @dataclasses.dataclass
 class _Graph:
     graph: torch.cuda.CUDAGraph
-    tokens: torch.Tensor                 # static input
-    output: torch.Tensor                 # static output, rewritten by each replay
+    inputs: torch.Tensor                 # static input
+    output: Optional[torch.Tensor]       # static output, rewritten by each replay
     recorded: dict[str, dict[str, int]]  # counter deltas made while captured
 
 
@@ -79,13 +83,14 @@ class GraphCache:
             self.caches[key] = make()
         return self.caches[key]
 
-    def run(self, key: tuple, params: torch.nn.Module, tokens: torch.Tensor,
-            body: Callable[[torch.Tensor], torch.Tensor],
-            cache: dict[str, torch.Tensor], static: dict[str, torch.Tensor]) -> torch.Tensor:
+    def run(self, key: tuple, params: torch.nn.Module, inputs: torch.Tensor,
+            body: Callable[[torch.Tensor], Optional[torch.Tensor]],
+            cache: dict[str, torch.Tensor],
+            static: dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
         """Replay the graph ``key`` of ``body`` (capturing it first if it is
-        new) on ``tokens`` and ``cache``; returns a copy of its output.
-        ``body`` maps the static token input to the output and works on
-        ``static``."""
+        new) on ``inputs`` and ``cache``; returns a copy of its output, or
+        None where ``body`` returns None. ``body`` maps the static input to
+        the output and works on ``static``."""
         for name, buf in static.items():
             if cache[name].shape != buf.shape:
                 raise ValueError(f"cache {name} {tuple(cache[name].shape)} does not match "
@@ -97,24 +102,25 @@ class GraphCache:
             self._params, self._weights = params, weights
         g = self.graphs.get(key)
         if g is None:
-            g = self.graphs[key] = self._capture(key, tokens, body,
+            g = self.graphs[key] = self._capture(key, inputs, body,
                                                  next(params.parameters()).dtype)
         foreign = cache is not static
         if foreign:
             for name, buf in static.items():
                 buf.copy_(cache[name])
-        g.tokens.copy_(tokens)
+        g.inputs.copy_(inputs)
         g.graph.replay()
         _build.replayed(g.recorded)
         self.stats["replays"] += 1
         if foreign:
             for name, buf in static.items():
                 cache[name].copy_(buf)
-        return g.output.clone()
+        return None if g.output is None else g.output.clone()
 
-    def _capture(self, key: tuple, tokens: torch.Tensor,
-                 body: Callable[[torch.Tensor], torch.Tensor], dtype: torch.dtype) -> _Graph:
-        device = tokens.device
+    def _capture(self, key: tuple, inputs: torch.Tensor,
+                 body: Callable[[torch.Tensor], Optional[torch.Tensor]],
+                 dtype: torch.dtype) -> _Graph:
+        device = inputs.device
         if self.pool is None:
             ops.prepare_capture(device)
             self._stream = torch.cuda.Stream(device)
@@ -122,7 +128,7 @@ class GraphCache:
             with torch.cuda.stream(self._stream):
                 x = torch.ones((16, 16), dtype=dtype, device=device)
                 x @ x
-        static_tokens = torch.empty(tokens.shape, dtype=tokens.dtype, device=device)
+        static_inputs = torch.empty(inputs.shape, dtype=inputs.dtype, device=device)
         graph = torch.cuda.CUDAGraph()
         gc.collect()
         collecting = gc.isenabled()
@@ -131,10 +137,10 @@ class GraphCache:
         try:
             with _build.recording() as recorded:
                 with torch.cuda.graph(graph, pool=self.pool, stream=self._stream):
-                    output = body(static_tokens)
+                    output = body(static_inputs)
         finally:
             if collecting:
                 gc.enable()
         self.capture_ms[key] = (time.perf_counter() - t0) * 1e3
         self.stats["captures"] += 1
-        return _Graph(graph, static_tokens, output, recorded)
+        return _Graph(graph, static_inputs, output, recorded)

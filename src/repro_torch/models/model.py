@@ -15,16 +15,20 @@ counterparts:
     tokens, cache = model.decode_tokens(params, cache, tok, n_steps)
 
 ``params`` is a :class:`~repro_torch.models.transformer.Transformer`
-module. The transformer families (dense, moe, vlm) are ported; the others
-raise.
+module, or for the encoder-decoder family (whisper-small) an
+:class:`~repro_torch.models.encdec.EncDec` module, whose ``batch`` is
+``{"frames", "tokens"}`` in ``forward`` and ``{"frames"}`` in ``prefill``.
+The transformer families (dense, moe, vlm) and encdec are ported; the
+recurrent ones raise.
 
 ``decode_tokens`` is the greedy loop that ``repro`` rolls into one
 ``lax.scan``: a fixed-shape loop of ``n_steps`` steps whose argmax stays on
 the device, writing into a ``(B, n_steps)`` tensor, with no host copy inside
 the loop. On a CUDA device the whole loop is one CUDA graph per ``(B,
-cache_len, n_steps)`` and ``prefill_jit`` one per ``(B, S, cache_len)``,
-captured at the first call of a shape and replayed after it
-(:mod:`repro_torch.models.graphs`); on the CPU both run as they are.
+cache_len, n_steps)`` and ``prefill_jit`` one per ``(B, S, cache_len)`` (for
+encdec per ``(B, frames, cache_len)``), captured at the first call of a
+shape and replayed after it (:mod:`repro_torch.models.graphs`); on the CPU
+both run as they are.
 ``static_cache`` is the model's own cache per ``(B, cache_len)``, reused by
 every call: the graphs' static buffer. Because step ``t`` depends only on
 steps ``< t``, running extra (bucket-padding) steps never changes the first
@@ -42,13 +46,12 @@ import torch
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
-from . import transformer
+from . import encdec, transformer
 from .graphs import GraphCache
 
 _NOT_PORTED = {
     "xlstm": "the recurrent families are ROADMAP item M9",
     "hybrid": "the recurrent families are ROADMAP item M9",
-    "encdec": "the encoder-decoder family is ROADMAP item M7",
 }
 
 
@@ -60,27 +63,38 @@ class Model:
     graphs: GraphCache = dataclasses.field(default_factory=GraphCache, compare=False,
                                            repr=False)
 
-    def init(self, seed: int) -> transformer.Transformer:
+    @property
+    def _impl(self):
+        """The family's module: ``encdec``, or ``transformer`` for the rest."""
+        return encdec if self.cfg.family == "encdec" else transformer
+
+    @property
+    def _input(self) -> str:
+        """The batch key that ``prefill`` reads."""
+        return "frames" if self._impl is encdec else "tokens"
+
+    def init(self, seed: int) -> Union[transformer.Transformer, encdec.EncDec]:
         """Fresh weights drawn from a ``torch.Generator`` seeded with ``seed``
         on the target device (``repro``'s scales, not its values)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return transformer.Transformer(self.cfg, self.device).init(gen)
+        module = encdec.EncDec if self._impl is encdec else transformer.Transformer
+        return module(self.cfg, self.device).init(gen)
 
     def forward(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """(logits (B, S, V), aux loss), as ``repro``'s ``Model.forward``."""
-        return transformer.forward(self.cfg, params, batch["tokens"],
-                                   use_kernel=self.use_kernels)
+        inputs = batch if self._impl is encdec else batch["tokens"]
+        return self._impl.forward(self.cfg, params, inputs, use_kernel=self.use_kernels)
 
     def init_cache(self, batch_size: int, max_len: int):
-        return transformer.init_cache(self.cfg, batch_size, max_len, device=self.device)
+        return self._impl.init_cache(self.cfg, batch_size, max_len, device=self.device)
 
     def prefill(self, params, batch, cache):
-        return transformer.prefill(self.cfg, params, batch["tokens"], cache,
-                                   use_kernel=self.use_kernels)
+        return self._impl.prefill(self.cfg, params, batch[self._input], cache,
+                                  use_kernel=self.use_kernels)
 
     def decode_step(self, params, cache, tokens):
-        return transformer.decode_step(self.cfg, params, cache, tokens,
-                                       use_kernel=self.use_kernels)
+        return self._impl.decode_step(self.cfg, params, cache, tokens,
+                                      use_kernel=self.use_kernels)
 
     @property
     def graph_stats(self) -> dict[str, int]:
@@ -96,19 +110,21 @@ class Model:
                                         lambda: self.init_cache(batch_size, max_len))
 
     def prefill_jit(self, params, batch, cache):
-        """``prefill``, as one CUDA graph per (B, S, cache_len) on the card."""
+        """``prefill``, as one CUDA graph per (B, S, cache_len) on the card;
+        for encdec per (B, frames, cache_len), whose graph returns None."""
         if self.device.type != "cuda":
             return self.prefill(params, batch, cache)
-        tokens = batch["tokens"]
-        B, S = tokens.shape
+        name = self._input
+        inputs = batch[name]
+        B, S = inputs.shape[:2]
         cache_len = cache["k"].shape[3]
         static = self.static_cache(B, cache_len)
 
-        def body(toks):
-            return self.prefill(params, {"tokens": toks}, static)[0]
+        def body(x):
+            return self.prefill(params, {name: x}, static)[0]
 
         key = ("prefill", B, S, cache_len)
-        return self.graphs.run(key, params, tokens, body, cache, static), cache
+        return self.graphs.run(key, params, inputs, body, cache, static), cache
 
     def decode_tokens(self, params, cache, tokens: torch.Tensor, n_steps: int):
         """Greedy-decode ``n_steps`` tokens from ``tokens`` (B, 1), as one
@@ -140,7 +156,7 @@ def build_model(cfg: ArchConfig, *, device: Optional[Union[str, torch.device]] =
     fam = cfg.family
     if fam in _NOT_PORTED:
         raise NotImplementedError(f"{cfg.arch_id}: {_NOT_PORTED[fam]}, not ported yet")
-    if fam not in ("dense", "moe", "vlm"):
+    if fam not in ("dense", "moe", "vlm", "encdec"):
         raise ValueError(f"unknown family {fam!r}")
     return Model(cfg=cfg, device=resolve_device(device), use_kernels=use_kernels)
 

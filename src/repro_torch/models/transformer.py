@@ -161,10 +161,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
 def prefill(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, cache, *,
             use_kernel: bool = True):
     """Run the prompt through the stack, filling the cache in place. Returns
-    (last-token logits (B, 1, V), cache)."""
+    (last-token logits (B, 1, V), cache). Without a sliding window a prompt
+    longer than the cache raises ValueError."""
     B, S = tokens.shape
     window = cfg.sliding_window
     S_c = cache["k"].shape[3]
+    if window is None and S > S_c:
+        # repro returns a cache grown to S rows here; its next decode step
+        # then writes row S of an S-row cache, which dynamic_update_slice
+        # clamps onto the last prompt row
+        raise ValueError(f"prompt of {S} tokens is longer than the cache's {S_c} rows "
+                         f"(repro grows the cache to {S} rows here)")
     x = _embed(params, tokens)
     positions = _positions(tokens)
     for i, p in enumerate(params.layers):

@@ -21,6 +21,10 @@ Shapes are padded to buckets exactly as in ``repro`` (``decode_mode="jit"``):
   masking would change the last-token logits, and the flash-attention kernel
   masks ragged lengths itself.
 
+An encoder-decoder arch (whisper-small) is fed zero audio frames, the stub
+frontend's output, exactly as ``repro`` feeds it, and decodes from the
+prompt's first token (:meth:`ModelServingBackend.prefill_inputs`).
+
 The bucketed path runs ``Model.prefill_jit`` and ``Model.decode_tokens`` on
 the model's static cache of the bucket, as ``repro`` runs its jitted pair: on
 the card each is a CUDA graph captured at the first call of its shape and
@@ -220,9 +224,8 @@ class ModelServingBackend:
 
         if mode == "eager":
             self.jit_stats["eager_calls"] += 1
-            cache = model.init_cache(1, S + T)
-            _, cache = model.prefill(self.params, {"tokens": prompt}, cache)
-            tok = prompt[:, -1:]
+            batch, tok = self.prefill_inputs(prompt)
+            _, cache = model.prefill(self.params, batch, model.init_cache(1, S + T))
             out = []
             for _ in range(T):
                 logits, cache = model.decode_step(self.params, cache, tok)
@@ -243,12 +246,23 @@ class ModelServingBackend:
             self.jit_stats["bucket_compiles"] += 1
         if B > 1:
             prompt = prompt.expand(B, S).contiguous()
-        cache = model.static_cache(B, cache_len)
-        _, cache = model.prefill_jit(self.params, {"tokens": prompt}, cache)
-        tok = prompt[:, -1:]
+        batch, tok = self.prefill_inputs(prompt)
+        _, cache = model.prefill_jit(self.params, batch, model.static_cache(B, cache_len))
         toks, _ = model.decode_tokens(self.params, cache, tok, Tb)
         self.jit_stats["jit_calls"] += 1
         return toks[0, :T].cpu().numpy().astype(np.int32)
+
+    def prefill_inputs(self, prompt: torch.Tensor) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+        """(prefill batch, first decode token) for ``prompt`` (B, S) on the
+        device: the prompt and its last token; for an encoder-decoder, zero
+        audio frames (B, encoder_frames, d_model) f32, the stub frontend's
+        output, and the prompt's first token, as ``repro`` feeds them."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            frames = torch.zeros((prompt.shape[0], cfg.encoder_frames, cfg.d_model),
+                                 dtype=torch.float32, device=self.device)
+            return {"frames": frames}, prompt[:, :1]
+        return {"tokens": prompt}, prompt[:, -1:]
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -114,6 +114,51 @@ def test_moe_captured_path_matches_eager_loop(arch):
         _close(cache[n][:, :, :, :S + T], want[n][:, :, :, :S + T], "bfloat16", f"{arch} {n} rows")
 
 
+def test_whisper_captured_path_matches_eager_and_counts_replays():
+    """The encoder-decoder's prefill graph takes f32 frames and returns no
+    output (the cross K/V it computes stay in the static cache); its decode
+    graph runs K3 twice a layer a step, over the self cache and the cross
+    cache. Random frames, so the encoder's output is not 0."""
+    m = build_model(dataclasses.replace(get_smoke_config("whisper-small"), dtype="bfloat16"))
+    params = m.init(0)
+    cfg = m.cfg
+    L, E, cache_len, T = cfg.n_layers, cfg.n_encoder_layers, 16, 8
+    tok = torch.tensor([[3]], dtype=torch.int32, device="cuda")
+    cache = m.static_cache(1, cache_len)
+    for seed in (7, 8):  # a capture, then a replay on other frames
+        frames = torch.tensor(np.random.RandomState(seed).randn(1, cfg.encoder_frames, cfg.d_model),
+                              dtype=torch.float32, device="cuda")
+        _build.reset_counters()
+        out, _ = m.prefill_jit(params, {"frames": frames}, cache)
+        toks, _ = m.decode_tokens(params, cache, tok, T)
+        torch.cuda.synchronize()
+        assert out is None
+        assert _build.launches == {"matmul": 0, "flash_attention": E, "decode_attention": 2 * L * T}
+        assert sum(_build.plain.values()) == 0
+        want = m.init_cache(1, cache_len)
+        m.prefill(params, {"frames": frames}, want)
+        t, eager = tok, []
+        for _ in range(T):
+            t = greedy_token(m.decode_step(params, want, t)[0])
+            eager.append(t)
+        assert torch.equal(toks, torch.cat(eager, 1))
+        for name in ("cross_k", "cross_v"):
+            _close(cache[name], want[name], "bfloat16", f"whisper {name}")
+        for name in ("k", "v"):
+            _close(cache[name][:, :, :, :T], want[name][:, :, :, :T], "bfloat16", f"whisper {name} rows")
+        assert torch.equal(cache["lengths"], want["lengths"])
+    # a cache of the caller's own: every entry, the cross K/V too, is copied
+    # into the static cache before a replay and back after it
+    foreign = m.init_cache(1, cache_len)
+    m.prefill_jit(params, {"frames": frames}, foreign)
+    again, out = m.decode_tokens(params, foreign, tok, T)
+    assert out is foreign and torch.equal(again, toks)
+    for name in ("cross_k", "cross_v", "k", "v", "lengths"):
+        assert torch.equal(foreign[name], cache[name]), name
+    assert foreign["cross_k"].abs().max() > 0
+    assert m.graph_stats == {"captures": 2, "replays": 6, "dropped": 0}
+
+
 def test_launch_counts_are_replays_times_what_was_captured():
     m = _model()
     params = m.init(0)

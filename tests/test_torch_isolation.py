@@ -30,6 +30,14 @@ VERBATIM = [
 )
 
 
+# near copies: the lines the port adds to the reference file, each exactly
+# once; without them the file is a copy. serving/pipeline.py builds its two
+# backends on the device the caller names (the card unless told otherwise)
+NEAR_COPIES = {
+    "serving/pipeline.py": ("    device=None,\n", "        device=device,\n"),
+}
+
+
 def _port_modules():
     mods = []
     for p in sorted(PORT.rglob("*.py")):
@@ -85,6 +93,22 @@ def test_verbatim_copies_equal_reference(rel):
     assert port.replace("repro_torch", "repro") == (REF / rel).read_text()
 
 
+@pytest.mark.parametrize("rel", sorted(NEAR_COPIES))
+def test_near_copies_differ_from_reference_only_by_their_added_lines(rel):
+    port = (PORT / rel).read_text().replace("repro_torch", "repro")
+    for line in NEAR_COPIES[rel]:
+        assert port.count(line) == 1, line
+        port = port.replace(line, "", 1)
+    assert port == (REF / rel).read_text()
+
+
+def test_scans_cover_every_module_of_the_port():
+    scanned = {p.relative_to(PORT).as_posix() for p in _scanned_files() if p.is_relative_to(PORT)}
+    assert {"models/encdec.py", "serving/pipeline.py"} <= scanned
+    mods = _port_modules()
+    assert "repro_torch.models.encdec" in mods and "repro_torch.serving.pipeline" in mods
+
+
 def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.core.benchmark import MatmulProbe
@@ -93,6 +117,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
     from repro_torch.models.model import build_model
     from repro_torch.serving.backend import ModelServingBackend
     from repro_torch.serving.engine import MinosServingEngine
+    from repro_torch.serving.pipeline import build_asr_llm_pipeline
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_smoke_config("llama3.2-1b")
@@ -102,6 +127,8 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ModelServingBackend(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_asr_llm_pipeline()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MinosServingEngine(cfg, MinosPolicy(elysium_threshold=200.0), Pricing.tpu_chip_seconds(4))
     # asking for the CPU is the way to run there

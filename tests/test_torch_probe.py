@@ -42,6 +42,25 @@ def test_run_returns_positive_ms_and_goes_through_the_dispatcher():
     ops.reset_counters()
 
 
+def test_run_is_the_host_clock_around_the_work(monkeypatch):
+    """``run()`` reads the host clock before the first launch and after the
+    work has finished, as ``repro``'s ``run()`` reads it around
+    ``block_until_ready``; it returns the difference in ms."""
+    import repro_torch.core.benchmark as bench
+
+    reads = []
+
+    def clock():
+        reads.append(ops.plain["matmul"])  # launches made when the clock was read
+        return 10.0 + 0.25 * (len(reads) - 1)
+
+    ops.reset_counters()
+    monkeypatch.setattr(bench.time, "perf_counter", clock)
+    assert MatmulProbe(n=32, repeats=3, device="cpu").run() == 250.0
+    assert reads == [0, 3]
+    ops.reset_counters()
+
+
 def test_callable_probe_and_overlap_helpers():
     p = CallableProbe(fn=lambda: 12.5, work_ms=10.0)
     assert p.run() == 12.5 and p.work_ms_at_unit_speed() == 10.0
