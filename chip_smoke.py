@@ -67,7 +67,24 @@ Run from the root of a checkout. It imports ``src/repro_torch`` (never
    cross cache; (d) runs whisper-small into llama3.2-1b, both at full width,
    as ``serving/pipeline.py`` wires them, through the three gate arms of
    ``benchmarks/pipeline_sweep.py`` (8 items each), and checks that the
-   outputs are identical across arms and the launches exact per item.
+   outputs are identical across arms and the launches exact per item;
+9. the vectorized Monte-Carlo path (``simulate_arms``, ``simulate_open_arms``,
+   batched over arms x seeds, the step loop captured as CUDA graphs), at the
+   settings of ``benchmarks/grid_sweep.py``, ``loadaware_sweep`` and
+   ``openloop_sweep._vec_leg`` rebuilt from the port: (a) the card against
+   the CPU on shared draws (the port's CPU generator) for the grid's smoke
+   and quick (adaptive) arms and the load-aware and open-loop smoke settings
+   (integer summaries and rows equal, floats within 1e-4); (b) captured
+   against eager on the card, bitwise, with no capture on a second call of a
+   shape and one lane alone equal to it in a batch; (c) the closed loop on
+   the card's own draws against the copied event engine at the reference's
+   KS / 2pp / 1pp bounds; (d) times: capture, cached wall, lanes x steps a
+   second, kernels a captured step and the idle share of a profiled replay,
+   the step's byte bound and the speedup per arm over the event engine, for
+   the full grid (1,080 arms x 4 seeds x 400 steps), the quick grid, and the
+   load-aware and open-loop quick settings; the eager path on the smoke grid;
+   the full grid with the whole scan in one graph; (e) the full grid at least
+   20x per arm over the event engine. It launches no kernel of K1-K3.
 
 It exits non-zero, printing no result, if there is no CUDA device or any
 phase fails. Its last two lines are the card's ``nvidia-smi`` name and power
@@ -1229,6 +1246,496 @@ def encdec_phase(args, card_str):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the vectorized Monte-Carlo path (simulate_arms, simulate_open_arms)
+# ---------------------------------------------------------------------------
+# The sweeps' settings, rebuilt from the port: benchmarks/grid_sweep.py:51-102
+# (SPEC, _profiles, analytic_threshold, build_grid) and its --smoke / --quick /
+# default grids, loadaware_sweep's, and benchmarks/openloop_sweep.py:66-90 and
+# _vec_leg (:144-160). One arm = one seeded run of n_steps requests.
+
+VEC_THINK_MS = 500.0
+VEC_SEEDS = range(4)
+GRIDS = {  # fracs, sigmas, number of profiles, gates, n_steps
+    "smoke": (np.linspace(0.2, 0.8, 4), np.linspace(0.08, 0.2, 3), 1, ("fixed",), 200),
+    "quick": (np.linspace(0.1, 0.9, 8), np.linspace(0.05, 0.25, 8), 2, ("fixed", "adaptive"), 300),
+    "full": (np.linspace(0.06, 0.94, 23), np.linspace(0.04, 0.26, 15), 3, ("fixed",), 400),
+}
+LOADAWARE = {  # fracs, alphas, n_steps, seeds; four streams
+    "smoke": (np.linspace(0.2, 0.8, 6), (0.2, 0.5, 0.8), 200, range(4)),
+    "quick": (np.linspace(0.1, 0.9, 8), (0.2, 0.5, 0.8), 300, range(6)),
+}
+OPENLOOP = {  # max_retries, seeds, n_steps, rate per s; four servers
+    "smoke": (3, range(4), 150, 1.2),
+    "quick": (5, range(8), 300, 0.6),
+}
+
+
+def vec_spec(name="weather-linreg-grid"):
+    from repro_torch.sim import FunctionSpec
+
+    return FunctionSpec(name=name, prepare_ms=600.0, body_ms=1500.0, benchmark_ms=300.0,
+                        cold_start_ms=250.0, recycle_lifetime_ms=8_000.0, contention_rho=0.95,
+                        benchmark_noise=0.08)
+
+
+def vec_profiles(n=3, loaded_alpha=None):
+    """The sweeps' churny platform presets (recycle as in the spec, paper
+    pricing); ``loaded_alpha``: gcf-gen2-loaded at that alpha instead."""
+    from repro_torch.sim import PlatformProfile
+    from repro_torch.sim.experiment import PAPER_PRICING
+
+    if loaded_alpha is not None:
+        presets = [PlatformProfile.gcf_gen2_loaded(alpha=float(loaded_alpha))]
+    else:
+        presets = [PlatformProfile.gcf_gen1(), PlatformProfile.gcf_gen2(),
+                   PlatformProfile.aws_lambda()][:n]
+    return [dataclasses.replace(p, recycle_lifetime_ms=8_000.0, pricing=PAPER_PRICING)
+            for p in presets]
+
+
+def analytic_threshold(pass_fraction: float, sigma: float) -> float:
+    from scipy import stats
+
+    spread = (sigma ** 2 + 0.08 ** 2) ** 0.5
+    return 300.0 * float(np.exp(stats.norm.ppf(pass_fraction) * spread))
+
+
+def build_grid(name):
+    """grid_sweep's arms: per (platform, sigma) one gate-off baseline, then
+    one arm per (pass fraction, gate). Returns (arms, n_steps)."""
+    from repro_torch.sim import VariationModel
+    from repro_torch.sim.vectorized import arm_from_spec, stack_arms
+
+    fracs, sigmas, n_prof, gates, n_steps = GRIDS[name]
+    spec, arms = vec_spec(), []
+    for prof in vec_profiles(n_prof):
+        for s in sigmas:
+            vm = VariationModel(sigma=float(s))
+            arms.append(arm_from_spec(spec, vm, profile=prof, gate="off",
+                                      think_time_ms=VEC_THINK_MS))
+            for f in fracs:
+                for gate in gates:
+                    arms.append(arm_from_spec(spec, vm, profile=prof, gate=gate,
+                                              threshold=analytic_threshold(float(f), float(s)),
+                                              pass_fraction=float(f), think_time_ms=VEC_THINK_MS))
+    return stack_arms(arms), n_steps
+
+
+def build_loadaware(name):
+    from repro_torch.sim import VariationModel
+    from repro_torch.sim.vectorized import arm_from_spec, stack_arms
+
+    fracs, alphas, n_steps, seeds = LOADAWARE[name]
+    spec, vm, arms = vec_spec(), VariationModel(sigma=0.15), []
+    for a in alphas:
+        prof = vec_profiles(loaded_alpha=a)[0]
+        arms.append(arm_from_spec(spec, vm, profile=prof, gate="off", think_time_ms=VEC_THINK_MS))
+        for f in fracs:
+            arms.append(arm_from_spec(spec, vm, profile=prof, gate="fixed",
+                                      threshold=analytic_threshold(float(f), 0.15),
+                                      pass_fraction=float(f), think_time_ms=VEC_THINK_MS))
+    return stack_arms(arms), n_steps, seeds
+
+
+def build_open(name):
+    """openloop_sweep._vec_leg's arms and per-seed Poisson arrivals."""
+    from repro_torch.sim import PoissonProcess, VariationModel
+    from repro_torch.sim.vectorized import arm_from_spec, stack_arms
+
+    max_retries, seeds, n_steps, rate = OPENLOOP[name]
+    spec, vm = vec_spec("weather-linreg-open"), VariationModel(sigma=0.15)
+    arms = stack_arms([
+        arm_from_spec(spec, vm, profile=prof, gate=gate, threshold=analytic_threshold(0.4, 0.15),
+                      max_retries=max_retries, think_time_ms=0.0)
+        for prof in vec_profiles(3)[::2] for gate in ("off", "fixed")])
+    proc = PoissonProcess(rate)
+    iats = np.stack([proc.iats_ms(np.random.RandomState(9_000 + i), n_steps) for i in seeds])
+    return arms, seeds, iats, dict(n_servers=4, max_attempts=max_retries + 1)
+
+
+def vec_settings(size):
+    """The four settings of phase 9 at one size ("smoke" or "quick"), each
+    (label, run), ``run(**kw)`` calling the private entry point with the
+    given device keywords."""
+    from repro_torch.sim import vectorized as TV
+
+    grid, n_grid = build_grid(size)
+    la, n_la, la_seeds = build_loadaware(size)
+    op, op_seeds, iats, op_kw = build_open(size)
+    return [
+        (f"grid --{size}", grid, lambda **kw: TV._simulate_arms(
+            grid, seeds=VEC_SEEDS, n_steps=n_grid, **kw)),
+        (f"loadaware --{size}", la, lambda **kw: TV._simulate_arms(
+            la, seeds=la_seeds, n_steps=n_la, n_streams=4, **kw)),
+        (f"openloop --{size}", op, lambda **kw: TV._simulate_open_arms(
+            op, seeds=op_seeds, iats_ms=iats, **op_kw, **kw)),
+    ]
+
+
+VEC_INTS = ("n_requests", "n_completed", "n_started", "n_terminated", "n_probes", "n_dropped",
+            "n_deferred", "n_parked_end", "bill_n")
+VEC_RTOL = 1e-4  # float summaries and rows, card against CPU (as the CPU tests hold the port)
+# a float row may also differ by up to this many f32 ulps of its lane's
+# horizon: waits and latencies are differences of two absolute times near it
+VEC_ULPS = 4
+
+
+def row_atol(res, shape):
+    """VEC_ULPS f32 ulps of each lane's horizon, broadcast to a row's shape."""
+    ulp = np.spacing(np.abs(np.asarray(res.summary["horizon_ms"], np.float32)))
+    return (VEC_ULPS * ulp).reshape(ulp.shape + (1,) * (len(shape) - 2))
+
+
+def vec_compare(got, want, what, exact=False) -> float:
+    """Integer summaries and int/bool rows equal; float summaries within
+    VEC_RTOL, float rows within VEC_RTOL or VEC_ULPS ulps of the lane's
+    horizon; or all bitwise when ``exact``. Returns the largest relative
+    error of a float summary and the largest excess of a float row over
+    rtol, in ulps of its lane's horizon."""
+    worst = [0.0, 0.0]
+    for part in ("summary", "requests"):
+        g, w = getattr(got, part) or {}, getattr(want, part) or {}
+        if sorted(g) != sorted(w):
+            raise PhaseError(f"{what}: {part} keys differ")
+        for k in w:
+            a, b = np.asarray(g[k]), np.asarray(w[k])
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise PhaseError(f"{what}: {part}[{k}] {a.dtype}{a.shape} vs {b.dtype}{b.shape}")
+            if exact or b.dtype.kind in "biu" or k in VEC_INTS:
+                if not np.array_equal(a, b):
+                    raise PhaseError(f"{what}: {part}[{k}] not equal "
+                                     f"({int((a != b).sum())} of {a.size} differ)")
+                continue
+            fin = np.isfinite(b)
+            if not np.array_equal(fin, np.isfinite(a)) or not np.array_equal(a[~fin], b[~fin]):
+                raise PhaseError(f"{what}: {part}[{k}] non-finite entries differ")
+            with np.errstate(invalid="ignore"):
+                diff = np.abs(a - b)
+            floor = row_atol(want, b.shape) if part == "requests" else 0.0
+            ok = ~fin | (diff <= VEC_RTOL * np.abs(b) + floor)
+            if not ok.all():
+                i = np.unravel_index(int(np.argmin(ok)), ok.shape)
+                raise PhaseError(f"{what}: {part}[{k}] at {i}: {a[i]!r} vs {b[i]!r}, beyond rtol "
+                                 f"{VEC_RTOL} and {VEC_ULPS} ulps of the lane's horizon")
+            if part == "summary":
+                rel = diff[fin] / np.maximum(np.abs(b[fin]), np.finfo(np.float32).tiny)
+                worst[0] = max(worst[0], float(rel.max()) if rel.size else 0.0)
+            else:  # beyond rtol, in ulps of the horizon
+                over = np.maximum(diff - VEC_RTOL * np.abs(b), 0.0)[fin] / np.broadcast_to(floor / VEC_ULPS, b.shape)[fin]
+                # (a horizon's ulp is never 0: horizons are positive)
+                worst[1] = max(worst[1], float(over.max()) if over.size else 0.0)
+    return worst
+
+
+def vec_runner(TV, arms, n_seeds, n_steps):
+    """The captured runner that the cache holds for this batch shape."""
+    n_arms = len(np.atleast_1d(arms.sigma))
+    hits = [r for (cfg, shape, dev), r in TV._JIT_CACHE.items()
+            if shape == (n_arms, n_seeds) and cfg.n_steps == n_steps and dev.startswith("cuda")
+            and not cfg.collect_requests]
+    if len(hits) != 1:
+        raise PhaseError(f"expected one cached runner for {(n_arms, n_seeds, n_steps)}, got {len(hits)}")
+    return hits[0]
+
+
+def event_per_arm(kind, n_steps, n_arms=3, repeats=2, rate=None) -> float:
+    """Host seconds per arm of the copied event engine on the same scenario,
+    best of ``repeats`` (grid_sweep._event_reference and
+    _event_reference_loaded; open loop: run_open_loop over n_steps / rate)."""
+    from repro_torch.core.policy import MinosPolicy
+    from repro_torch.sim import FaaSPlatform, PoissonProcess, VariationModel, run_open_loop
+    from repro_torch.sim.vectorized import run_event_chain
+
+    vm, thr = VariationModel(sigma=0.15), analytic_threshold(0.4, 0.15)
+    prof = vec_profiles(loaded_alpha=0.6)[0] if kind == "loaded" else vec_profiles(1)[0]
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for seed in range(n_arms):
+            pol = MinosPolicy(elysium_threshold=thr, max_retries=5)
+            if kind == "open":
+                knobs = dataclasses.replace(prof.knobs(), max_instances=4)
+                plat = FaaSPlatform(vec_spec("weather-linreg-open"), vm, pol, seed=seed,
+                                    profile=prof, knobs=knobs)
+                run_open_loop(plat, PoissonProcess(rate), rng=np.random.RandomState(7_000 + seed),
+                              duration_ms=n_steps / rate * 1e3, drain_limit_ms=120_000.0)
+            else:
+                plat = FaaSPlatform(vec_spec(), vm, pol, seed=seed, profile=prof)
+                run_event_chain(plat, n_steps, VEC_THINK_MS, n_vus=4 if kind == "loaded" else 1)
+        best = min(best, (time.perf_counter() - t0) / n_arms)
+    return best
+
+
+def vec_parity(card_str):
+    """9a: the card against the CPU on shared draws (the port's CPU
+    generator), for the grid's smoke and quick (adaptive) arms and the
+    load-aware and open-loop smoke settings; 9b: captured against eager on
+    the card, bitwise, a second call capturing nothing, and one lane run
+    alone equal to the same lane in a batch."""
+    from repro_torch.sim import vectorized as TV
+
+    quick, n_quick = build_grid("quick")
+    settings = vec_settings("smoke") + [("grid --quick arms (adaptive)", quick, lambda **kw: TV._simulate_arms(
+        quick, seeds=VEC_SEEDS, n_steps=n_quick, **kw))]
+    for label, arms, run in settings:
+        t0 = time.perf_counter()
+        cpu = run(device="cpu", collect_requests=True)
+        t_cpu = time.perf_counter() - t0
+        gpu = run(device="cuda", draw_device="cpu", collect_requests=True)
+        err, ulps = vec_compare(gpu, cpu, f"[9a] {label}")
+        ints = {k: int(np.asarray(cpu.summary[k]).sum()) for k in VEC_INTS[2:]
+                if k in cpu.summary and k not in ("n_parked_end",)}
+        print(f"[9a] {label}: {cpu.n_arms} arms x {cpu.n_seeds} seeds x {cpu.n_steps} steps, card "
+              f"vs CPU on the CPU generator's draws: integer summaries and rows equal {ints}; float "
+              f"summaries max rel err {err:.3e} (limit {VEC_RTOL}); float rows at most {ulps:.2f} "
+              f"horizon ulps beyond rtol {VEC_RTOL} (limit {VEC_ULPS}); CPU run {t_cpu:.2f} s")
+    for label, arms, run in vec_settings("smoke")[::2]:
+        before = TV.jit_stats["compiles"]
+        cap = run(device="cuda", collect_requests=True)
+        again = run(device="cuda", collect_requests=True)
+        eager = run(device="cuda", collect_requests=True, eager=True)
+        if TV.jit_stats["compiles"] != before:
+            raise PhaseError(f"[9b] {label}: a call of a captured shape captured again")
+        vec_compare(cap, eager, f"[9b] {label} captured vs eager", exact=True)
+        vec_compare(again, cap, f"[9b] {label} second call", exact=True)
+        print(f"[9b] {label}: captured equals eager bitwise (summaries and rows); the second "
+              f"call of the shape captured nothing")
+    grid, n_grid = build_grid("smoke")
+    # a lane's draws depend on (seed, arm index), so the lone arm keeps index 0
+    lane_arm, lane_seed = 0, 2
+    alone = TV.stack_arms([TV.ArmParams(*[np.asarray(x)[lane_arm] for x in grid])])
+    one = TV.simulate_arms(alone, seeds=[VEC_SEEDS[lane_seed]], n_steps=n_grid)
+    batch = TV.simulate_arms(grid, seeds=VEC_SEEDS, n_steps=n_grid)
+    for k in one.summary:
+        if not np.array_equal(one.summary[k][0, 0], batch.summary[k][lane_arm, lane_seed]):
+            raise PhaseError(f"[9b] lane (arm {lane_arm}, seed {lane_seed}) alone differs in {k}")
+    print(f"[9b] lane (arm {lane_arm}, seed {lane_seed}) run alone equals the same lane in the "
+          f"15 x 4 batch, every summary bitwise")
+
+
+VEC_EVENT_SEEDS = 60  # event-engine seeds of 9c (the reference's test uses 10; see the docstring)
+
+
+def vec_statistics(card_str):
+    """9c: the closed loop on gcf-gen1, gate off and fixed, on the card's own
+    draws (20 seeds x 600 requests, the reference test's) against the copied
+    event engine, at the reference's bounds (tests/test_vectorized_parity.py
+    :143,170,183: KS D < 0.05, pass rate within 2pp, speedup within 1pp).
+
+    The event side runs VEC_EVENT_SEEDS seeds, not the test's 10: the event
+    engine's own speedup varies by about 1pp between disjoint 10-seed sets
+    (printed: the six sets of these 60 seeds), so at 10 seeds the 1pp bound
+    holds the event sample's noise as much as the port (PERF.md §6). The
+    comparison with seeds 0-9 is printed beside it and not held."""
+    from scipy.stats import ks_2samp
+
+    from repro_torch.core.policy import MinosPolicy
+    from repro_torch.sim import FaaSPlatform, PlatformProfile, VariationModel
+    from repro_torch.sim import vectorized as TV
+
+    spec, vm = vec_spec("parity"), VariationModel(sigma=0.15)
+    prof = dataclasses.replace(PlatformProfile.gcf_gen1(), recycle_lifetime_ms=8_000.0)
+    thr, n_req = analytic_threshold(0.4, 0.15), 600
+    event, vec, by_set = {}, {}, {}
+    for gate in ("off", "fixed"):
+        pol = (MinosPolicy(elysium_threshold=float("inf"), enabled=False) if gate == "off"
+               else MinosPolicy(elysium_threshold=thr, max_retries=5))
+        an, lat, nterm, nprobe = [], [], 0, 0
+        for seed in range(VEC_EVENT_SEEDS):
+            plat = FaaSPlatform(spec, vm, pol, seed=seed, profile=prof)
+            rs = TV.run_event_chain(plat, n_req, VEC_THINK_MS)
+            an += [r.analysis_ms for r in rs]
+            lat += [r.latency_ms for r in rs]
+            nterm += plat.instances_terminated
+            nprobe += len(plat.benchmark_observations)
+            if seed % 10 == 9:  # mean analysis ms of each 10-seed set
+                by_set.setdefault(gate, []).append(np.mean(an[-10 * n_req:]))
+        event[gate] = (np.asarray(an), np.asarray(lat), 1.0 - nterm / max(nprobe, 1))
+    arms = TV.stack_arms([TV.arm_from_spec(spec, vm, profile=prof, gate=g, threshold=thr,
+                                           think_time_ms=VEC_THINK_MS) for g in ("off", "fixed")])
+    res = TV.simulate_arms(arms, seeds=range(20), n_steps=n_req, collect_requests=True)
+    for i, gate in enumerate(("off", "fixed")):
+        vec[gate] = (res.requests["analysis_ms"][i].ravel(), res.requests["latency_ms"][i].ravel(),
+                     float(res.summary["pass_rate"][i].mean()))
+    parts = []
+    for gate in ("off", "fixed"):
+        for j, field in enumerate(("analysis", "latency")):
+            d = ks_2samp(event[gate][j], vec[gate][j]).statistic
+            parts.append(f"KS D {gate} {field} {d:.4f}")
+            if not d < 0.05:
+                raise PhaseError(f"[9c] KS D {d:.4f} >= 0.05 ({gate}, {field})")
+    dp = abs(event["fixed"][2] - vec["fixed"][2])
+    imp_ev = 1.0 - event["fixed"][0].mean() / event["off"][0].mean()
+    imp_v = 1.0 - vec["fixed"][0].mean() / vec["off"][0].mean()
+    imp_sets = [1.0 - f / o for f, o in zip(by_set["fixed"], by_set["off"])]
+    if not dp < 0.02 or not abs(imp_ev - imp_v) < 0.01:
+        raise PhaseError(f"[9c] pass rate {vec['fixed'][2]:.4f} vs {event['fixed'][2]:.4f}, "
+                         f"speedup {imp_v:.4f} vs {imp_ev:.4f}: outside 2pp / 1pp")
+    print(f"[9c] gcf-gen1 on the card's draws (20 seeds x {n_req}) vs the event engine "
+          f"({VEC_EVENT_SEEDS} seeds x {n_req}): {'; '.join(parts)} (< 0.05); pass rate "
+          f"{vec['fixed'][2]:.4f} vs {event['fixed'][2]:.4f} (within 2pp); speedup {imp_v:.4f} vs "
+          f"{imp_ev:.4f} (within 1pp). The event speedup by 10-seed set (not held): "
+          f"{', '.join(f'{x:.4f}' for x in imp_sets)}; the test's seeds 0-9 give "
+          f"{(imp_v - imp_sets[0]) * 100:+.2f}pp")
+
+
+def tree_bytes(TV, tree) -> int:
+    leaves = []
+    TV._tree_map(lambda t: leaves.append(t) or t, tree)
+    return sum(t.nbytes for t in leaves)
+
+
+def vec_time(label, TV, arms, n_seeds, n_steps, run, event_s, card_str, profile=True):
+    """9d: one setting's capture, cached wall time, throughput, kernels a
+    captured step, idle share of one profiled replay, the step's byte bound
+    and the speedup per arm over the event engine. Returns the speedup."""
+    n_arms = len(np.atleast_1d(arms.sigma))
+    lanes = n_arms * n_seeds
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    runner = vec_runner(TV, arms, n_seeds, n_steps)
+    held_mb = (torch.cuda.memory_allocated() - mem0) / 2**20
+    peak_mb = (torch.cuda.max_memory_allocated() - mem0) / 2**20
+    t_cached = float("inf")
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        t_cached = min(t_cached, time.perf_counter() - t0)
+
+    def replay():
+        runner.step_t.zero_()  # as run() does: the step index restarts at 0
+        for g in runner.plan:
+            g.replay()
+
+    replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    replay()
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    # one chunk's graph under the profiler (a whole run is 10^5-10^6 events)
+    steps_p = min(TV._CHUNK, n_steps)
+
+    def replay_chunk():
+        runner.step_t.zero_()
+        runner.plan[0].replay()
+
+    replay_chunk()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    replay_chunk()
+    torch.cuda.synchronize()
+    chunk_ms = (time.perf_counter() - t0) * 1e3
+    prof_txt = "not profiled"
+    if profile:
+        kernels, copies, busy, span, _ = profiled(replay_chunk)
+        prof_txt = (f"one {steps_p}-step graph profiled: {kernels / steps_p:.1f} kernels a step "
+                    f"({copies} copies/sets), {busy / steps_p:.4f} ms of kernels a step, idle "
+                    f"{1 - busy / chunk_ms:.3f} of its unprofiled replay ({chunk_ms:.3f} ms; "
+                    f"{1 - busy / span:.3f} of the profiled span)")
+    # lane state read and written, the arm parameters and constants read, and
+    # the step's draws read, once a step; request rows are off in timing runs
+    state_b, fixed_b = tree_bytes(TV, runner.state), tree_bytes(TV, runner.fixed)
+    draw_b = sum(x.nbytes for x in runner.xs) / n_steps
+    step_bytes = 2 * state_b + fixed_b + draw_b
+    bound_step_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    speedup = event_s / (t_cached / lanes)
+    print(f"[9d] {label}: {n_arms} arms x {n_seeds} seeds = {lanes} lanes x {n_steps} steps | first "
+          f"call {t_first:.3f} s, capture {runner.capture_ms:.1f} ms ({runner.graphs} graph(s), "
+          f"{len(runner.plan)} replays of at most {TV._CHUNK} steps), {held_mb:.1f} MB held after "
+          f"it (static buffers), {peak_mb:.1f} MB at its peak | "
+          f"cached {t_cached * 1e3:.3f} ms (best of 2): {lanes * n_steps / t_cached:.4e} "
+          f"lanes.steps/s, {t_cached / lanes * 1e3:.6f} ms a lane | replays alone {replay_ms:.3f} ms "
+          f"wall, {replay_ms / n_steps:.4f} ms a step; {prof_txt} | byte bound {bound_step_ms * 1e3:.3f} us a step ({step_bytes / 2**20:.3f} "
+          f"MB: state {state_b / 2**20:.3f} MB read+written) | event engine {event_s * 1e3:.3f} ms an "
+          f"arm on the host: {speedup:.1f}x per arm ({card_str})")
+    return speedup
+
+
+def vec_phase(card_str):
+    """Phase 9: the vectorized Monte-Carlo path; launches no kernel of
+    K1-K3 (checked on the counters)."""
+    from repro_torch.kernels import ops
+    from repro_torch.sim import vectorized as TV
+
+    t_phase = time.perf_counter()
+    ops.reset_counters()
+    vec_parity(card_str)
+    print(f"[9] 9a-9b took {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
+    vec_statistics(card_str)
+    print(f"[9] 9c took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+
+    # 9d: times. The full grid is the size the sweep's users run.
+    full, n_full = build_grid("full")
+    quick, n_quick = build_grid("quick")
+    speed = {}
+    speed["full"] = vec_time("grid (full)", TV, full, len(VEC_SEEDS), n_full, lambda: TV.simulate_arms(
+        full, seeds=VEC_SEEDS, n_steps=n_full), event_per_arm("closed", n_full), card_str)
+    vec_time("grid --quick (adaptive)", TV, quick, len(VEC_SEEDS), n_quick, lambda: TV.simulate_arms(
+        quick, seeds=VEC_SEEDS, n_steps=n_quick), event_per_arm("closed", n_quick), card_str)
+    la, n_la, la_seeds = build_loadaware("quick")
+    vec_time("loadaware --quick (4 streams)", TV, la, len(la_seeds), n_la, lambda: TV.simulate_arms(
+        la, seeds=la_seeds, n_steps=n_la, n_streams=4), event_per_arm("loaded", n_la), card_str)
+    op, op_seeds, iats, op_kw = build_open("quick")
+    rate = OPENLOOP["quick"][3]
+    vec_time("openloop --quick", TV, op, len(op_seeds), iats.shape[1], lambda: TV.simulate_open_arms(
+        op, seeds=op_seeds, iats_ms=iats, **op_kw), event_per_arm("open", iats.shape[1], rate=rate),
+        card_str)
+
+    # the eager path on the smoke grid, for scale
+    smoke, n_smoke = build_grid("smoke")
+
+    def eager():
+        TV._simulate_arms(smoke, seeds=VEC_SEEDS, n_steps=n_smoke, device="cuda", eager=True)
+        torch.cuda.synchronize()
+
+    eager()
+    t_eager = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        eager()
+        t_eager = min(t_eager, time.perf_counter() - t0)
+    kernels, _, busy, _, _ = profiled(eager)
+    print(f"[9d] eager, grid --smoke (15 arms x 4 seeds x {n_smoke} steps): {t_eager * 1e3:.1f} ms "
+          f"(best of 2), {t_eager / n_smoke * 1e3:.3f} ms a step, {kernels / n_smoke:.1f} device "
+          f"activities a step (draws and set-up included), idle {1 - busy / (t_eager * 1e3):.3f} "
+          f"({card_str})")
+
+    print(f"[9] 9d took {time.perf_counter() - t0:.1f} s")
+    # whole-scan capture of the full grid, against the chunked one above
+    chunk = TV._CHUNK
+    TV._JIT_CACHE.clear()
+    TV._CHUNK = n_full
+    try:
+        vec_time(f"grid (full), whole scan in one graph", TV, full, len(VEC_SEEDS), n_full,
+                 lambda: TV.simulate_arms(full, seeds=VEC_SEEDS, n_steps=n_full),
+                 event_per_arm("closed", n_full), card_str, profile=False)
+    finally:
+        TV._CHUNK = chunk
+        TV._JIT_CACHE.clear()
+    torch.cuda.empty_cache()
+
+    # 9e: the full grid at least 20x per arm over the event engine
+    if not speed["full"] >= 20.0:
+        raise PhaseError(f"[9e] full grid {speed['full']:.1f}x per arm < 20x")
+    print(f"[9e] full grid {speed['full']:.1f}x per arm over the event engine (bar 20x)")
+    launches, plain = dict(ops.launches), dict(ops.plain)
+    if max(launches.values()) != 0 or max(plain.values()) != 0:
+        raise PhaseError(f"phase 9 launched {launches}, plain {plain}; expected none")
+    print(json.dumps({"counters": {"path": "vectorized", "launches": launches, "plain": plain}}))
+    print(f"[9] no kernel of K1-K3 launched; phase 9 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # seed 2: the gated arm's first cold replicas fail the gate, so a run shows
@@ -1331,6 +1838,9 @@ def main() -> int:
 
     # 8. the encoder-decoder family and the ASR→LLM pipeline
     kernels += encdec_phase(args, card_str)
+
+    # 9. the vectorized Monte-Carlo path (no kernel of K1-K3)
+    vec_phase(card_str)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_str)

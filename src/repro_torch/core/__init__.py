@@ -22,7 +22,21 @@ from .elysium import (
     pretest_threshold,
     run_pretest,
 )
-from .estimators import EMA, P2Quantile, Welford
+from .estimators import (
+    EMA,
+    P2Quantile,
+    P2State,
+    Welford,
+    WelfordState,
+    p2_init,
+    p2_update,
+    p2_value,
+    welford_init,
+    welford_merge,
+    welford_std,
+    welford_update,
+    welford_variance,
+)
 from .lifecycle import FunctionInstance, InstanceState, LifecycleError
 from .policy import (
     AdaptiveMinosPolicy,
@@ -52,7 +66,9 @@ __all__ = [
     "Pricing", "WorkflowCost", "total_cost",
     "OnlineElysiumController", "PretestReport", "optimal_pass_fraction",
     "pretest_threshold", "run_pretest",
-    "EMA", "P2Quantile", "Welford",
+    "EMA", "P2Quantile", "P2State", "Welford", "WelfordState",
+    "p2_init", "p2_update", "p2_value",
+    "welford_init", "welford_merge", "welford_std", "welford_update", "welford_variance",
     "FunctionInstance", "InstanceState", "LifecycleError",
     "AdaptiveMinosPolicy", "MinosPolicy", "Verdict", "expected_cold_start_attempts",
     "retries_for_runaway_budget", "runaway_probability",

@@ -6,18 +6,25 @@ observations: the mean can be maintained exactly online, the standard
 deviation via Welford's algorithm [13, Welford 1962], and percentiles via
 the P² algorithm [12, Jain & Chlamtac 1985].
 
-This module holds the plain-Python forms that the controller and the
-substrate use, copied from ``repro.core.estimators``. The batched forms that
-fold a fleet of simulated instances into one program (``WelfordState``,
-``P2State`` and their update functions) belong to the vectorized path and are
-not ported yet.
+Every estimator is provided in two forms:
+
+* a plain-Python class (used by the controller / simulator hot path), copied
+  from ``repro.core.estimators``, and
+* a batched torch form (a NamedTuple state of tensors + ``update``
+  functions), the counterpart of the reference's pure-JAX pytree form. Every
+  field has the lane axes leading (any shape, ``()`` included; P² keeps its
+  five markers on a trailing axis), and every update is elementwise and
+  branch-free, so the vectorized simulator folds a fleet of lanes in one
+  step with no host sync and the step can be captured in a CUDA graph.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import numpy as np
+import torch
 
 # ---------------------------------------------------------------------------
 # Welford mean / variance
@@ -71,6 +78,62 @@ class Welford:
         return out
 
 
+class WelfordState(NamedTuple):
+    """Batched Welford state: ``count``, ``mean`` and ``m2`` share one shape
+    (the lane axes), float32 unless asked otherwise."""
+
+    count: torch.Tensor
+    mean: torch.Tensor
+    m2: torch.Tensor
+
+
+def welford_init(shape=(), dtype=torch.float32, device=None) -> WelfordState:
+    """Welford state of ``shape`` independent streams, all empty."""
+    z = torch.zeros(shape, dtype=dtype, device=device)
+    return WelfordState(count=z, mean=z, m2=z)
+
+
+def welford_update(state: WelfordState, x: torch.Tensor) -> WelfordState:
+    count = state.count + 1.0
+    delta = x - state.mean
+    mean = state.mean + delta / count
+    m2 = state.m2 + delta * (x - mean)
+    return WelfordState(count=count, mean=mean, m2=m2)
+
+
+def welford_update_masked(
+    state: WelfordState, x: torch.Tensor, mask: torch.Tensor
+) -> WelfordState:
+    """:func:`welford_update` where ``mask`` is true, identity where not —
+    arithmetic masking, as the reference's, so the lanes that skip the
+    observation keep their state bit for bit."""
+    m = mask.to(state.count.dtype)
+    count = state.count + m
+    delta = x - state.mean
+    mean = state.mean + m * delta / torch.clamp(count, min=1.0)
+    m2 = state.m2 + m * delta * (x - mean)
+    return WelfordState(count=count, mean=mean, m2=m2)
+
+
+def welford_variance(state: WelfordState) -> torch.Tensor:
+    return torch.where(state.count < 2.0, 0.0,
+                       state.m2 / torch.clamp(state.count - 1.0, min=1.0))
+
+
+def welford_std(state: WelfordState) -> torch.Tensor:
+    return torch.sqrt(welford_variance(state))
+
+
+def welford_merge(a: WelfordState, b: WelfordState) -> WelfordState:
+    """Chan et al. parallel merge, lane by lane; two empty sides give an
+    empty state."""
+    n = a.count + b.count
+    safe_n = torch.clamp(n, min=1.0)
+    delta = b.mean - a.mean
+    mean = a.mean + delta * b.count / safe_n
+    m2 = a.m2 + b.m2 + delta * delta * a.count * b.count / safe_n
+    return WelfordState(count=n, mean=torch.where(n == 0, 0.0, mean),
+                        m2=torch.where(n == 0, 0.0, m2))
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +220,117 @@ class P2Quantile:
         return self.heights[2]
 
 
+class P2State(NamedTuple):
+    """Batched P² state. ``n_obs`` (int32) and ``p`` have the lane shape;
+    ``heights``, ``positions`` and ``desired`` add a trailing axis of 5."""
+
+    n_obs: torch.Tensor
+    heights: torch.Tensor     # first 5 observations stored raw until full
+    positions: torch.Tensor
+    desired: torch.Tensor
+    p: torch.Tensor
+
+
+def p2_init(p, device=None) -> P2State:
+    """Empty P² state for quantile ``p`` (a float, or a tensor of the lane
+    shape: one quantile per lane)."""
+    p = torch.as_tensor(p, dtype=torch.float32, device=device)
+    f32 = dict(dtype=torch.float32, device=p.device)
+    pe = p[..., None]
+    return P2State(
+        n_obs=torch.zeros(p.shape, dtype=torch.int32, device=p.device),
+        heights=torch.zeros(p.shape + (5,), **f32),
+        positions=torch.arange(1.0, 6.0, **f32).expand(p.shape + (5,)).clone(),
+        desired=torch.tensor([1.0, 0.0, 0.0, 0.0, 5.0], **f32)
+        + torch.tensor([0.0, 2.0, 4.0, 2.0, 0.0], **f32) * pe
+        + torch.tensor([0.0, 1.0, 1.0, 3.0, 0.0], **f32),
+        p=p,
+    )
+
+
+def _p2_increments(p: torch.Tensor) -> torch.Tensor:
+    return torch.stack([torch.zeros_like(p), p / 2.0, p, (1.0 + p) / 2.0,
+                        torch.ones_like(p)], dim=-1)
+
+
+def p2_update(state: P2State, x: torch.Tensor) -> P2State:
+    """One P² update of every lane, branch-free. Lanes still in warm-up
+    (fewer than 5 observations) store ``x`` raw and sort at the fifth; the
+    others move their markers. Both forms are computed for every lane and
+    selected per lane, as the reference's ``lax.cond`` does under ``vmap``;
+    the warm-up write is a one-hot select, so a lane in the steady state
+    (``n_obs >= 5``) writes nothing, as JAX drops that out-of-bounds write."""
+    x = torch.as_tensor(x, dtype=torch.float32, device=state.heights.device)
+    idx = torch.arange(5, device=state.heights.device)
+
+    # warm-up
+    h_w = torch.where(idx == state.n_obs[..., None], x[..., None], state.heights)
+    n_w = state.n_obs + 1
+    h_w = torch.where((n_w >= 5)[..., None], torch.sort(h_w, dim=-1).values, h_w)
+
+    # steady state
+    q = state.heights
+    below = x < q[..., 0]
+    above = x >= q[..., 4]
+    q = torch.cat([torch.where(below, x, q[..., 0])[..., None], q[..., 1:4],
+                   torch.where(above, x, q[..., 4])[..., None]], dim=-1)
+    # cell index k in [0,3]
+    k_mid = (x[..., None] >= q[..., 1:4]).to(torch.int32).sum(-1, dtype=torch.int32)
+    k = torch.where(below, 0, torch.where(above, 3, k_mid))
+    pos = state.positions + (idx > k[..., None]).to(torch.float32)
+    des = state.desired + _p2_increments(state.p)
+    qs = [q[..., j] for j in range(5)]
+    ps = [pos[..., j] for j in range(5)]
+    for i in range(1, 4):
+        d = des[..., i] - ps[i]
+        n_i, n_im, n_ip = ps[i], ps[i - 1], ps[i + 1]
+        move_up = (d >= 1.0) & (n_ip - n_i > 1.0)
+        move_dn = (d <= -1.0) & (n_im - n_i < -1.0)
+        do = move_up | move_dn
+        s_ = torch.where(move_up, 1.0, -1.0)
+        denom_hi = torch.where(n_ip - n_i == 0, 1.0, n_ip - n_i)
+        denom_lo = torch.where(n_i - n_im == 0, 1.0, n_i - n_im)
+        q_par = qs[i] + s_ / (n_ip - n_im) * (
+            (n_i - n_im + s_) * (qs[i + 1] - qs[i]) / denom_hi
+            + (n_ip - n_i - s_) * (qs[i] - qs[i - 1]) / denom_lo
+        )
+        ok = (qs[i - 1] < q_par) & (q_par < qs[i + 1])
+        q_j = torch.where(move_up, qs[i + 1], qs[i - 1])
+        pos_j = torch.where(move_up, ps[i + 1], ps[i - 1])
+        denom_lin = torch.where(pos_j - n_i == 0, 1.0, pos_j - n_i)
+        q_lin = qs[i] + s_ * (q_j - qs[i]) / denom_lin
+        q_new = torch.where(ok, q_par, q_lin)
+        qs[i] = torch.where(do, q_new, qs[i])
+        ps[i] = torch.where(do, n_i + s_, n_i)
+    h_s = torch.stack(qs, dim=-1)
+    pos_s = torch.stack(ps, dim=-1)
+
+    warm = state.n_obs < 5
+    warm5 = warm[..., None]
+    return P2State(
+        n_obs=state.n_obs + 1,
+        heights=torch.where(warm5, h_w, h_s),
+        positions=torch.where(warm5, state.positions, pos_s),
+        desired=torch.where(warm5, state.desired, des),
+        p=state.p,
+    )
+
+
+def p2_value(state: P2State) -> torch.Tensor:
+    """Current quantile estimate of every lane. In warm-up (<5 obs) the
+    p-quantile of the raw stored observations, linearly interpolated."""
+    n = state.n_obs
+    idx = torch.arange(5, device=state.heights.device)
+    h = torch.sort(torch.where(idx < torch.clamp(n, min=1)[..., None],
+                               state.heights, torch.inf), dim=-1).values
+    pos = state.p * (n.to(torch.float32) - 1.0)
+    lo = torch.clamp(torch.floor(pos).to(torch.int32), 0, 4)
+    hi = torch.minimum(torch.clamp(lo + 1, 0, 4), torch.clamp(n - 1, min=0))
+    frac = pos - torch.floor(pos)
+    lo_v = torch.gather(h, -1, lo.long()[..., None])[..., 0]
+    hi_v = torch.gather(h, -1, hi.long()[..., None])[..., 0]
+    warm = lo_v * (1 - frac) + hi_v * frac
+    return torch.where(n < 5, warm, state.heights[..., 2])
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Discrete-event FaaS platform simulator (the paper's evaluation substrate).
 
 Copies of ``repro.sim``'s event-driven modules, numpy randomness and all, so
-the same seeds give the same runs. The vectorized Monte-Carlo path
-(``repro.sim.vectorized``) is not ported yet."""
+the same seeds give the same runs, and the vectorized Monte-Carlo path
+(``vectorized``) as batched torch over arms × seeds, on the card by
+default."""
 from .experiment import (
     ARMS,
     PAPER_PRICING,
@@ -44,6 +45,15 @@ from .platform import (
     SimFunctionBackend,
 )
 from .variation import VariationModel, paper_week
+from .vectorized import (
+    ArmParams,
+    VecResult,
+    arm_from_spec,
+    run_event_chain,
+    simulate_arms,
+    simulate_open_arms,
+    stack_arms,
+)
 from .workflow_dag import (
     ItemResult,
     Stage,
@@ -70,6 +80,8 @@ __all__ = [
     "FaaSPlatform", "FunctionSpec", "PlatformProfile", "RequestResult",
     "SimFunctionBackend",
     "VariationModel", "paper_week",
+    "ArmParams", "VecResult", "arm_from_spec", "run_event_chain",
+    "simulate_arms", "simulate_open_arms", "stack_arms",
     "ItemResult", "Stage", "WorkflowDAG", "WorkflowEngine",
     "WorkflowRunResult", "etl_chain", "etl_suite",
     "run_workflow_batch", "run_workflow_closed_loop",
