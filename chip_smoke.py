@@ -8,8 +8,10 @@ Run from the root of a checkout. It imports ``src/repro_torch`` (never
 1. builds the three hand-written kernels from ``src/repro_torch/kernels/csrc``;
 2. holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes, at the sweep shapes of ``tests/test_kernels.py`` and
-   at the edge shapes of ``tests/test_torch_kernels_cuda.py``, in f32 and
-   bf16 (attention held per output row, so that the small outputs over
+   at the edge shapes of ``tests/test_torch_kernels_cuda.py``, and K2 with
+   a sliding window (windows below, at and past S, not a multiple of 64,
+   1; causal and not; GQA group 1 and 4; fewer queries than keys), in f32
+   and bf16 (attention held per output row, so that the small outputs over
    whisper's 1,500 keys meet a limit of their size: ``row_limits``), and
    checks that two calls on the same inputs give bitwise the same output;
 3. runs the Minos probe, ``MatmulProbe(n=512, repeats=8)``, on the card:
@@ -84,7 +86,26 @@ Run from the root of a checkout. It imports ``src/repro_torch`` (never
    the full grid (1,080 arms x 4 seeds x 400 steps), the quick grid, and the
    load-aware and open-loop quick settings; the eager path on the smoke grid;
    the full grid with the whole scan in one graph; (e) the full grid at least
-   20x per arm over the event engine. It launches no kernel of K1-K3.
+   20x per arm over the event engine. It launches no kernel of K1-K3;
+10. the recurrent families: (a) serves the same requests on full-width
+   zamba2-1.2b (38 Mamba2 layers, d_model 2048, 64 SSD heads of 64, d_state
+   64, one shared attention block of 32/32 heads with window 4096 applied
+   after each of the first 6 of its 7 Mamba groups; bf16, random weights
+   from ``--seed``) in both arms on the captured path, with the launches
+   held exactly (K2 once an application a request, K3 once an application a
+   decode step, no plain call), captured against eager (K/V rows, SSD
+   states and conv contexts), and the kernel path against the plain path in
+   f32 and bf16 as phase 5; (b) the same requests on full-width xlstm-1.3b
+   (6 x [7 mLSTM + 1 sLSTM], 4 heads, bf16), which launches no kernel and
+   calls no plain version, captured against eager (the captured requests
+   back to back on one static cache, the eager ones each from a fresh
+   cache: tokens equal, states within 2e-2 of their largest value), one
+   static cache a batch size, and the card against the CPU in f32 at full
+   width and ``XLSTM_CPU_LAYERS`` layers (logits within 1e-4 of the
+   largest, greedy tokens equal); (d) for both, phase 6's times, each
+   decode step's byte bound, the graphs' memory, and K2 and K3 at zamba2's
+   served shapes and K2 where the window masks (q(1,32,1024,64), window
+   256) beside SDPA with a band mask.
 
 It exits non-zero, printing no result, if there is no CUDA device or any
 phase fails. Its last two lines are the card's ``nvidia-smi`` name and power
@@ -141,6 +162,10 @@ MOE_ARCH = "granite-moe-1b-a400m"  # phase 7's served arch
 DEEPSEEK_LAYERS = 4  # of deepseek-moe-16b's 28, at full width (about 5.5 GB in bf16)
 DEEPSEEK_STEPS = 8   # its teacher-forced f32 decode steps
 WHISPER = "whisper-small"  # phase 8's served arch, the pipeline's ASR stage
+ZAMBA = "zamba2-1.2b"  # phase 10's hybrid: Mamba2 and a shared windowed attention block
+XLSTM = "xlstm-1.3b"   # phase 10's xLSTM: no kernel on its path
+XLSTM_CPU_LAYERS = 8   # one plan group (7 mLSTM + 1 sLSTM): the card against the CPU in f32
+XLSTM_CPU_STEPS = 8    # its teacher-forced decode steps
 
 
 class PhaseError(RuntimeError):
@@ -250,6 +275,15 @@ FLASH_EDGES = [
     # whisper-small: its encoder over 1,500 frames, and decoder queries over them
     (1, 12, 12, 1500, 1500, 64), (1, 12, 12, 9, 1500, 64),
 ]
+# K2 with a sliding window, as in tests/test_torch_kernels_cuda.py: GQA group
+# 1 and 4, ragged tails, fewer queries than keys, zamba2's 32/32 heads at a
+# served prompt and at the windowed timing shape; windows below S, not a
+# multiple of 64, 1 (each row its own key), and past S (zamba2's 4096)
+FLASH_WINDOW_SHAPES = [
+    (1, 8, 8, 200, 200, 64), (2, 8, 2, 130, 130, 128), (1, 32, 8, 77, 250, 64),
+    (1, 4, 4, 65, 65, 96), (1, 32, 32, 250, 250, 64), (1, 32, 32, 1024, 1024, 64),
+]
+FLASH_WINDOWS = (1, 37, 64, 100, 256, 4096)
 
 
 def check_kernels(main_shapes, failures) -> None:
@@ -291,6 +325,17 @@ def check_kernels(main_shapes, failures) -> None:
                         ref.attention_ref(q, k, v, causal=causal), failures, worst,
                         tol=TOL["flash_attention"][dtype], per_row=True)
                 n_cases += 1
+        for b_, qh, kvh, sq, skv, d in FLASH_WINDOW_SHAPES:
+            q = rand((b_, qh, sq, d), dtype, 2)
+            k, v = rand((b_, kvh, skv, d), dtype, 3), rand((b_, kvh, skv, d), dtype, 4)
+            for window in FLASH_WINDOWS:
+                for causal in (True, False):
+                    compare(f"flash {dtype} {(b_, qh, kvh, sq, skv, d)} causal={causal} "
+                            f"window={window}",
+                            lambda: flash_attention(q, k, v, causal=causal, window=window),
+                            ref.attention_ref(q, k, v, causal=causal, window=window), failures,
+                            worst, tol=TOL["flash_attention"][dtype], per_row=True)
+                    n_cases += 1
         b_, qh, kvh, s, d = main_shapes["flash"]
         q, k, v = rand((b_, qh, s, d), dtype, 5), rand((b_, kvh, s, d), dtype, 6), rand((b_, kvh, s, d), dtype, 7)
         compare(f"flash {dtype} main {main_shapes['flash']}",
@@ -330,7 +375,8 @@ def check_kernels(main_shapes, failures) -> None:
           f"2e-3; bf16 flash 3.125e-2, decode 2e-2, matmul 5e-2; matmul atol x10 as in "
           f"tests/test_kernels.py; attention held per output row, below these where the row's "
           f"largest |plain| is small: bf16 two ulps there, f32 2e-3 of it; every case called "
-          f"twice and compared bitwise)")
+          f"twice and compared bitwise; K2 also with a sliding window, "
+          f"{len(FLASH_WINDOW_SHAPES) * len(FLASH_WINDOWS) * 2} cases a dtype)")
     print("[2] largest max_abs_err over the cases (at |plain|; largest share of a limit): "
           + "; ".join(f"{k.replace('torch.', '')} {e:.4e} ({w:.4f}; {sh:.3f})"
                       for k, (e, w, sh) in sorted(worst.items())))
@@ -419,6 +465,24 @@ def check_outputs(cfg, reqs, results, ph="4"):
             raise PhaseError(f"request {req.request_id}: token out of the vocabulary")
     print(f"[{ph}] tokens identical across arms for all {len(reqs)} requests; "
           f"first request's: {results['baseline'][0].tokens[:8].tolist()}...")
+
+
+def serve_and_count(cfg, reqs, args, card_str, expected, ph):
+    """Serves ``reqs`` in both arms (phase 4's ``serve_arms``) with the
+    counters at 0 first; holds the launches to ``expected`` and no plain
+    call, and the tokens across arms. Returns (engines, results, launches)."""
+    from repro_torch.kernels import ops
+
+    ops.reset_counters()
+    engines, results = serve_arms(cfg, reqs, args.seed, card_str, ph=ph)
+    launches, plain = dict(ops.launches), dict(ops.plain)
+    print(json.dumps({"counters": {"path": cfg.arch_id, "launches": launches, "plain": plain}}))
+    if launches != expected or max(plain.values()) != 0:
+        raise PhaseError(f"{cfg.arch_id} launches {launches}, plain {plain}; expected {expected} "
+                         f"launches and no plain call")
+    print(f"[{ph}] launches exactly as the path needs: {expected}; no plain call")
+    check_outputs(cfg, reqs, results, ph=ph)
+    return engines, results, launches
 
 
 @contextlib.contextmanager
@@ -560,42 +624,53 @@ def bf16_kernel_vs_plain(mk, params, prompt, ph="5"):
         raise PhaseError(f"bf16 kernel path disagrees with the plain path ({mk.cfg.arch_id})")
 
 
-def f32_copy(cfg, params):
-    """A plain-path f32 model and an f32 copy of ``params``."""
-    from repro_torch.models.encdec import EncDec
+def f32_copy(cfg, params, device=DEVICE):
+    """A plain-path f32 model and an f32 copy of ``params`` on ``device``."""
     from repro_torch.models.model import build_model
-    from repro_torch.models.transformer import Transformer
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    p32 = (EncDec if cfg.family == "encdec" else Transformer)(cfg32, torch.device(DEVICE))
+    p32 = type(params)(cfg32, torch.device(device))
     with torch.no_grad():
         for a, b in zip(p32.parameters(), params.parameters(), strict=True):
             a.copy_(b)
-    return build_model(cfg32, use_kernels=False), p32
+    return build_model(cfg32, device=device, use_kernels=False), p32
 
 
 def max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
-def flash_row(shape, causal=True):
+def flash_row(shape, causal=True, window=None):
     """K2 at ``shape`` (batch, q heads, kv heads, S, d), bf16 (the inputs of
-    phase 2's main case): (shape text, max_abs_err, kernel ms, plain ms,
-    library ms, bound ms, bound by)."""
+    phase 2's main case), with an optional sliding ``window``: (shape text,
+    max_abs_err, kernel ms, plain ms, library ms, bound ms, bound by). The
+    library call is SDPA, with a band mask where the window masks keys."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
 
     bq, qh, kvh, s, d = shape
     q, k, v = rand((bq, qh, s, d), torch.bfloat16, 5), rand((bq, kvh, s, d), torch.bfloat16, 6), rand((bq, kvh, s, d), torch.bfloat16, 7)
     # the (q, k) pairs this input needs
-    pairs = bq * qh * s * (s + 1) / 2 if causal else bq * qh * s * s
+    pos = torch.arange(s, device=DEVICE)
+    keep = torch.ones((s, s), dtype=torch.bool, device=DEVICE)
+    if causal:
+        keep &= pos[:, None] >= pos[None, :]
+    if window is not None:
+        keep &= pos[:, None] - pos[None, :] < window
+    pairs = bq * qh * int(keep.sum())
     bms, by = bound(2 * (2 * bq * qh * s * d + 2 * bq * kvh * s * d), 4 * d * pairs, torch.bfloat16)
-    return (f"q({bq},{qh},{s},{d}) kv({bq},{kvh},{s},{d}) bf16 {'causal' if causal else 'non-causal'}",
-            max_err(flash_attention(q, k, v, causal=causal), ref.attention_ref(q, k, v, causal=causal)),
-            graph_ms(lambda: flash_attention(q, k, v, causal=causal)),
-            graph_ms(lambda: ref.attention_ref(q, k, v, causal=causal)),
-            graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                                            enable_gqa=True)), bms, by)
+    if window is None or window >= s:  # the window masks nothing: SDPA's own causal path
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)  # noqa: E731
+    else:
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep, enable_gqa=True)  # noqa: E731
+    kw = dict(causal=causal, window=window)
+    text = f"q({bq},{qh},{s},{d}) kv({bq},{kvh},{s},{d}) bf16 {'causal' if causal else 'non-causal'}"
+    if window is not None:
+        text += f" window {window}" + (" (masks nothing)" if window >= s else "")
+    return (text,
+            max_err(flash_attention(q, k, v, **kw), ref.attention_ref(q, k, v, **kw)),
+            graph_ms(lambda: flash_attention(q, k, v, **kw)),
+            graph_ms(lambda: ref.attention_ref(q, k, v, **kw)), graph_ms(lib), bms, by)
 
 
 def decode_row(shape, valid):
@@ -714,7 +789,7 @@ def captured_vs_eager(engine, reqs, served, ph="4b"):
     be = engine.backend
     model, params = be.model, be.params
     tol = TOL["decode_attention"][torch.bfloat16]
-    rows, worst = [], 0.0
+    rows, worst, worst_state = [], 0.0, 0.0
     for req, res in zip(reqs, served):
         S, T = len(req.prompt), req.max_new_tokens
         Tb = _bucket(T, base=be.decode_bucket)
@@ -750,19 +825,37 @@ def captured_vs_eager(engine, reqs, served, ph="4b"):
         if not np.array_equal(toks["captured"][0, :T].numpy(), res.tokens):
             raise PhaseError(f"request {req.request_id}: captured tokens differ from served ones")
         a, b = caches["captured"], caches["eager"]
-        diff = max((a[n][:, :, :, :filled + Tb].float() - b[n][:, :, :, :filled + Tb].float()
-                    ).abs().max().item() for n in ("k", "v"))
+        diff = max(((a[n][:, :, :, :filled + Tb].float() - b[n][:, :, :, :filled + Tb].float()
+                     ).abs().max().item() for n in KV_ROWS if n in a), default=0.0)
         worst = max(worst, diff)
         if diff > tol or not torch.equal(a["lengths"], b["lengths"]):
             raise PhaseError(f"request {req.request_id}: captured K/V rows differ from eager "
                              f"by {diff:.3e}")
         if not all(torch.equal(a[n], b[n]) for n in a if n.startswith("cross_")):
             raise PhaseError(f"request {req.request_id}: captured cross K/V differ from eager")
+        # recurrent state (SSD states, conv contexts, mLSTM/sLSTM states),
+        # relative to its largest value
+        states = [n for n in a if a[n].is_floating_point() and n not in KV_ROWS
+                  and not n.startswith("cross_")]
+        srel = max(((a[n].float() - b[n].float()).abs().max().item()
+                    / max(b[n].float().abs().max().item(), 1e-30) for n in states), default=0.0)
+        worst_state = max(worst_state, srel)
+        if srel > tol:
+            raise PhaseError(f"request {req.request_id}: captured recurrent state differs from "
+                             f"eager by {srel:.3e} of its largest value")
         rows.append((req.request_id, S, Tb, times))
     cross = "; cross K/V bitwise equal" if model.cfg.family == "encdec" else ""
-    print(f"[{ph}] captured vs eager, {len(reqs)} requests: tokens equal (and equal to the served ones); "
-          f"K/V rows max |diff| {worst:.4e} (tolerance {tol}, the bf16 decode tolerance){cross}")
+    state = (f"; recurrent state max |diff| / max |value| {worst_state:.4e} (tolerance {tol})"
+             if states else "")
+    kv = (f"; K/V rows max |diff| {worst:.4e} (tolerance {tol}, the bf16 decode tolerance)"
+          if any(n in a for n in KV_ROWS) else "")
+    print(f"[{ph}] captured vs eager, {len(reqs)} requests: tokens equal (and equal to the served "
+          f"ones; the captured requests ran back to back on one static cache, the eager ones "
+          f"each on a fresh cache){kv}{state}{cross}")
     return rows
+
+
+KV_ROWS = ("k", "v", "attn_k", "attn_v")  # caches whose rows prefill and decode write
 
 
 def profiled(fn):
@@ -898,9 +991,9 @@ def graph_memory(engines, card_str, ph="6"):
         static = sum(t.numel() * t.element_size() for c in g.caches.values() for t in c.values())
         pool = sum(s["total_size"] for s in segments
                    if tuple(s.get("segment_pool_id", ())) == tuple(g.pool))
-        print(f"[{ph}] {name} arm: {len(g.graphs)} graphs hold {static / 1e6:.3f} MB of static "
-              f"caches ({len(g.caches)}) and {pool / 1e6:.3f} MB in their memory pool "
-              f"({card_str})")
+        print(f"[{ph}] {name} arm: {len(g.graphs)} graphs hold {static / 1e6:.3f} MB "
+              f"({static / 2**20:.3f} MiB) of static caches ({len(g.caches)}) and "
+              f"{pool / 1e6:.3f} MB ({pool / 2**20:.3f} MiB) in their memory pool ({card_str})")
 
 
 # ---------------------------------------------------------------------------
@@ -931,7 +1024,6 @@ def moe_phase(args, card_str):
     the plain path; K2 and K3 timed at both archs' shapes. Returns the
     kernels-line entries of the granite path."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import ops
     from repro_torch.serving.backend import ServeRequest, _bucket
 
     t0 = time.perf_counter()
@@ -941,17 +1033,9 @@ def moe_phase(args, card_str):
     S, tb = len(longest.prompt), _bucket(args.new_tokens, base=8)
     # 7a. serving, both arms: one K2 launch a layer a request, one K3 launch
     # a layer a decode step, and nothing else
-    ops.reset_counters()
-    engines, results = serve_arms(cfg, reqs, args.seed, card_str, ph="7a")
-    launches, plain = dict(ops.launches), dict(ops.plain)
-    print(json.dumps({"counters": {"path": MOE_ARCH, "launches": launches, "plain": plain}}))
     expected = {"matmul": 0, "flash_attention": 2 * len(reqs) * cfg.n_layers,
                 "decode_attention": 2 * len(reqs) * cfg.n_layers * tb}
-    if launches != expected or max(plain.values()) != 0:
-        raise PhaseError(f"{MOE_ARCH} launches {launches}, plain {plain}; expected {expected} "
-                         f"launches and no plain call")
-    print(f"[7a] launches exactly as the path needs: {expected}; no plain call")
-    check_outputs(cfg, reqs, results, ph="7a")
+    engines, results, launches = serve_and_count(cfg, reqs, args, card_str, expected, "7a")
     # 7b. captured against eager
     rows = captured_vs_eager(engines["baseline"], reqs, results["baseline"], ph="7b")
     # 7c. kernel path against plain path: f32, then bf16 on the serving weights
@@ -1195,7 +1279,6 @@ def encdec_phase(args, card_str):
     the plain path (8c); the full-width ASR→LLM pipeline (8d); then times
     (8e). Returns the kernels-line entries of the served whisper path."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import ops
     from repro_torch.serving.backend import ServeRequest, _bucket
 
     t0 = time.perf_counter()
@@ -1204,17 +1287,9 @@ def encdec_phase(args, card_str):
     tb = _bucket(args.new_tokens, base=8)
     # 8a. serving, both arms: one K2 launch an encoder layer a request, two
     # K3 launches (self and cross) a decoder layer a decode step
-    ops.reset_counters()
-    engines, results = serve_arms(cfg, reqs, args.seed, card_str, ph="8a")
-    launches, plain = dict(ops.launches), dict(ops.plain)
-    print(json.dumps({"counters": {"path": WHISPER, "launches": launches, "plain": plain}}))
     expected = {"matmul": 0, "flash_attention": 2 * len(reqs) * cfg.n_encoder_layers,
                 "decode_attention": 2 * len(reqs) * 2 * cfg.n_layers * tb}
-    if launches != expected or max(plain.values()) != 0:
-        raise PhaseError(f"{WHISPER} launches {launches}, plain {plain}; expected {expected} "
-                         f"launches and no plain call")
-    print(f"[8a] launches exactly as the path needs: {expected}; no plain call")
-    check_outputs(cfg, reqs, results, ph="8a")
+    engines, results, launches = serve_and_count(cfg, reqs, args, card_str, expected, "8a")
     # 8b. captured against eager
     rows = captured_vs_eager(engines["baseline"], reqs, results["baseline"], ph="8b")
     # 8c. kernel path against plain path on random frames: f32, then bf16
@@ -1736,6 +1811,136 @@ def vec_phase(card_str):
     print(f"[9] no kernel of K1-K3 launched; phase 9 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the recurrent families (zamba2-1.2b, xlstm-1.3b)
+# ---------------------------------------------------------------------------
+
+
+def recurrent_bounds(cfg, params, state_bytes) -> float:
+    """The least time of a decode step at batch 1: every weight read once
+    (the embedding only its one row), and the recurrent state read and
+    written once, over the memory rate. ms."""
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    weights -= params.embed.numel() * params.embed.element_size()
+    return (weights + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3
+
+
+def zamba_phase(args, card_str):
+    """10a/10c-d for zamba2-1.2b: served in both arms on the captured path
+    (K2 once an application of the shared block a request, K3 once an
+    application a decode step), captured against eager, the f32 and bf16
+    kernel paths against the plain path, then times. Returns the served
+    path's kernels-line entries."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serving.backend import ServeRequest, _bucket
+
+    t0 = time.perf_counter()
+    cfg = get_config(ZAMBA)
+    reqs = make_requests(cfg, args.requests, args.new_tokens, args.seed, ServeRequest)
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    S, tb = len(longest.prompt), _bucket(args.new_tokens, base=8)
+    n_attn = cfg.n_layers // cfg.hybrid_attn_every
+    expected = {"matmul": 0, "flash_attention": 2 * len(reqs) * n_attn,
+                "decode_attention": 2 * len(reqs) * n_attn * tb}
+    engines, results, launches = serve_and_count(cfg, reqs, args, card_str, expected, "10a")
+    rows = captured_vs_eager(engines["baseline"], reqs, results["baseline"], ph="10a")
+    f32_kernel_vs_plain(cfg, prompt_of(reqs[0]), args.new_tokens, args.seed, ph="10a")
+    be = engines["baseline"].backend
+    bf16_kernel_vs_plain(be.model, be.params, prompt_of(longest), ph="10a")
+    # 10d. times
+    state = be.model.init_cache(1, 1)
+    state_bytes = sum(state[n].numel() * state[n].element_size() for n in ("h", "conv"))
+    print(f"[10d] {ZAMBA} decode step bound at batch 1, bf16: "
+          f"{recurrent_bounds(cfg, be.params, state_bytes):.4f} ms (bytes: the weights, "
+          f"{sum(p.numel() for p in be.params.parameters()) / 1e9:.3f} B params, read once; "
+          f"the SSD states and conv contexts, {state_bytes / 1e6:.1f} MB, read and written once)")
+    time_requests(engines, reqs, rows, card_str, ph="10d")
+    graph_memory(engines, card_str, ph="10d")
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cache_len = _bucket(S + tb, base=8)
+    kernels = report_rows(
+        [("flash_attention", flash_row((1, H, K, S, hd), window=cfg.sliding_window)),
+         ("decode_attention", decode_row((1, H, K, cache_len, hd), S + tb // 2))],
+        launches, card_str, "10d", suffix=f"[{ZAMBA}]")
+    # K2 where the window masks: a 1,024-token prompt, window 256
+    report_rows([("flash_attention", flash_row((1, H, K, 1024, hd), window=256))],
+                None, card_str, "10d", suffix="[window 256]")
+    del engines, results, be
+    torch.cuda.empty_cache()
+    print(f"[10] {ZAMBA} took {time.perf_counter() - t0:.1f} s")
+    return kernels
+
+
+def xlstm_card_vs_cpu(cfg, prompt, seed, ph="10b"):
+    """xlstm-1.3b at full width and ``XLSTM_CPU_LAYERS`` layers in f32, the
+    card against the CPU on the same weights: prefill logits and
+    ``XLSTM_CPU_STEPS`` teacher-forced decode steps' logits within 1e-4 of
+    the largest value, greedy tokens equal. xLSTM has no kernel path to hold
+    against a plain one; this holds the card's arithmetic."""
+    from repro_torch.models.model import build_model, greedy_token
+
+    cfg8 = dataclasses.replace(cfg, n_layers=XLSTM_CPU_LAYERS, dtype="float32")
+    card_m = build_model(cfg8)
+    card_p = card_m.init(seed)
+    cpu_m, cpu_p = f32_copy(cfg8, card_p, device="cpu")
+    runs = {"card": (card_m, card_p, prompt), "cpu": (cpu_m, cpu_p, prompt.cpu())}
+    caches, logits = {}, {}
+    t0 = time.perf_counter()
+    for name, (m, p, x) in runs.items():
+        caches[name] = m.init_cache(1, 1)
+        logits[name] = [m.prefill(p, {"tokens": x}, caches[name])[0].cpu()]
+    tok = greedy_token(logits["card"][0])
+    toks = {"card": [], "cpu": []}
+    for _ in range(XLSTM_CPU_STEPS):
+        for name, (m, p, _) in runs.items():
+            step = m.decode_step(p, caches[name], tok.to(m.device))[0].cpu()
+            logits[name].append(step)
+            toks[name].append(greedy_token(step))
+        tok = toks["card"][-1]  # teacher-forced: both see the card's tokens
+    errs = [(a - b).abs().max().item() / b.abs().max().item()
+            for a, b in zip(logits["card"], logits["cpu"])]
+    same = torch.equal(torch.cat(toks["card"], 1), torch.cat(toks["cpu"], 1))
+    print(f"[{ph}] f32 {XLSTM} full width, {XLSTM_CPU_LAYERS} layers, card against CPU, one "
+          f"{prompt.shape[1]}-token prompt and {XLSTM_CPU_STEPS} decode steps: max |logit "
+          f"difference| / max |logit| prefill {errs[0]:.3e}, decode {max(errs[1:]):.3e} "
+          f"(tolerance 1e-4); greedy tokens equal: {same} ({time.perf_counter() - t0:.1f} s)")
+    if max(errs) > 1e-4 or not same or not all(torch.isfinite(x).all() for x in logits["card"]):
+        raise PhaseError(f"{XLSTM}: the card disagrees with the CPU in f32")
+    del runs, caches, card_p, cpu_p
+
+
+def xlstm_phase(args, card_str):
+    """10b and 10d for xlstm-1.3b: served in both arms on the captured path
+    (no kernel launched, no plain call), captured against eager (the
+    captured requests back to back on one static cache, the eager ones each
+    on a fresh cache), the card against the CPU in f32, then times."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serving.backend import ServeRequest
+
+    t0 = time.perf_counter()
+    cfg = get_config(XLSTM)
+    reqs = make_requests(cfg, args.requests, args.new_tokens, args.seed, ServeRequest)
+    expected = {"matmul": 0, "flash_attention": 0, "decode_attention": 0}
+    engines, results, _ = serve_and_count(cfg, reqs, args, card_str, expected, "10b")
+    be = engines["baseline"].backend
+    if list(be.model.graphs.caches) != [(1, None)]:
+        raise PhaseError(f"{XLSTM}: static caches {list(be.model.graphs.caches)}; expected one "
+                         f"a batch size, (1, None)")
+    rows = captured_vs_eager(engines["baseline"], reqs, results["baseline"], ph="10b")
+    xlstm_card_vs_cpu(cfg, prompt_of(reqs[0]), args.seed)
+    state = be.model.init_cache(1, 1)
+    state_bytes = sum(t.numel() * t.element_size() for n, t in state.items() if n != "lengths")
+    print(f"[10d] {XLSTM} decode step bound at batch 1, bf16: "
+          f"{recurrent_bounds(cfg, be.params, state_bytes):.4f} ms (bytes: the weights, "
+          f"{sum(p.numel() for p in be.params.parameters()) / 1e9:.3f} B params, read once; "
+          f"the mLSTM and sLSTM states, {state_bytes / 1e6:.1f} MB, read and written once)")
+    time_requests(engines, reqs, rows, card_str, ph="10d")
+    graph_memory(engines, card_str, ph="10d")
+    del engines, results, be
+    torch.cuda.empty_cache()
+    print(f"[10] {XLSTM} took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # seed 2: the gated arm's first cold replicas fail the gate, so a run shows
@@ -1841,6 +2046,12 @@ def main() -> int:
 
     # 9. the vectorized Monte-Carlo path (no kernel of K1-K3)
     vec_phase(card_str)
+
+    # 10. the recurrent families
+    t0 = time.perf_counter()
+    kernels += zamba_phase(args, card_str)
+    xlstm_phase(args, card_str)
+    print(f"[10] phase 10 took {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_str)

@@ -152,7 +152,7 @@ _SIGNATURES = {
     "matmul": ("repro_matmul", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
     "flash_attention": (
         "repro_flash_attention",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     ),
     "decode_attention": (
         "repro_decode_attention",

@@ -1,4 +1,4 @@
-// K2: flash attention for prefill (causal or full, GQA), for sm_90a.
+// K2: flash attention for prefill (causal or full, GQA, optional sliding window), for sm_90a.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (body
 // _flash_kernel), a Pallas TPU kernel whose grid walks (batch * q_heads,
@@ -57,8 +57,22 @@
 // as in the Pallas kernel; ragged q and kv tails are masked inside the
 // kernel, so serving's unpadded prompts never fall back; the kv loop ends at
 // the causal diagonal (the skip of flash_attention.py:64-66).
+//
+// Sliding window (window > 0; 0 is none): a key is kept only where
+// q_pos - k_pos < window, on top of the causal mask (and without it, as the
+// oracle's attention_ref(window=) keeps it). The Pallas kernel has no
+// window; the reference computes a windowed prefill with that oracle. The kv
+// loop starts at the tile of the q tile's first row's left edge,
+// max(0, q0 + off - window + 1) / BKV, so it reads only the band; a tile
+// that straddles a row's left edge is masked like the diagonal tile. A row
+// whose running max is still -1e30 (every key it has seen masked, which
+// happens when its band starts in a later tile than its q tile's first row)
+// adds nothing: its exponents are taken against 0 instead of its max, so
+// every -1e30 score gives exactly 0 and the row starts its online softmax
+// at its first kept key (one select a row a tile, not one an element).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -101,7 +115,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              T* __restrict__ o, int q_heads, int kv_heads, int q_seq, int kv_seq,
-             int causal, float sm_scale) {
+             int causal, int window, float sm_scale) {
   constexpr int NJ = D / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
   float* qt = smem;                        // [D][BQ + 1]
@@ -144,6 +158,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     const int max_kpos = min(q0 + BQ, q_seq) - 1 + off;
     n_tiles = min(n_tiles, max_kpos / BKV + 1);
   }
+  // the first kv tile in the band of the q tile's first row
+  const int t0 = window > 0 ? max(0, q0 + off - window + 1) / BKV : 0;
 
   float acc[4][NJ];
 #pragma unroll
@@ -151,7 +167,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t0; t < n_tiles; ++t) {
     const int kv0 = t * BKV;
     __syncthreads();  // previous tile's kt / vs / ps are no longer read
     for (int idx = tid; idx < BKV * D; idx += THREADS) {
@@ -189,7 +205,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       for (int j = 0; j < 4; ++j) {
         const int cidx = tx + 16 * j;
         const int k_pos = kv0 + cidx;
-        const bool ok = k_pos < kv_seq && (!causal || q_pos >= k_pos);
+        const bool ok = k_pos < kv_seq && (!causal || q_pos >= k_pos) &&
+                        (window <= 0 || q_pos - k_pos < window);
         ps[r * (BKV + 1) + cidx] = ok ? s[i][j] * sm_scale : NEG_BIG;
       }
     }
@@ -202,7 +219,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       const float x0 = row[lane], x1 = row[lane + 32];
       const float m_prev = m_s[r];
       const float m_cur = fmaxf(m_prev, warp_max(fmaxf(x0, x1)));
-      const float p0 = expf(x0 - m_cur), p1 = expf(x1 - m_cur);
+      const float m_sub = m_cur > NEG_BIG ? m_cur : 0.f;  // 0 while no key is kept
+      const float p0 = expf(x0 - m_sub), p1 = expf(x1 - m_sub);
       const float sum = warp_sum(p0 + p1);
       row[lane] = p0;
       row[lane + 32] = p1;
@@ -396,7 +414,7 @@ template <int D>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int q_heads,
-                int kv_heads, int q_seq, int kv_seq, int causal, float sm_scale) {
+                int kv_heads, int q_seq, int kv_seq, int causal, int window, float sm_scale) {
   constexpr int ATOMS = (D + 63) / 64;  // 64-column atoms a row spans
   constexpr int TILE = ATOMS * ATOM;    // bytes of one 64-row tile
   constexpr int NPV = ATOMS * 64;       // width of the PV product
@@ -423,16 +441,21 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 
   int n_tiles = (kv_seq + BKV - 1) / BKV;
   if (causal) n_tiles = min(n_tiles, (min(q0 + BQ, q_seq) - 1 + off) / BKV + 1);
+  // the first kv tile in the band of the q tile's first row
+  const int t0 = window > 0 ? max(0, q0 + off - window + 1) / BKV : 0;
+  // the lowest key that every row of the tile keeps (the last row's band edge)
+  const int band_lo = window > 0 ? q0 + BQ + off - window : INT_MIN;
 
-  // commit group 0: Q and kv tile 0; group 1: kv tile 1 (empty if none);
-  // the group committed after tile t holds tile t + 2, so tile t is in group t
+  // commit group 0: Q and kv tile t0; group 1: kv tile t0 + 1 (empty if
+  // none); the group committed after tile t holds tile t + 2, so tile t is
+  // in group t - t0, and in ring stage (t - t0) & 1
   load_tile<D>(sq, qp, q0, q_seq, tid);
-  load_tile<D>(sk, kp, 0, kv_seq, tid);
-  load_tile<D>(sv, vp, 0, kv_seq, tid);
+  load_tile<D>(sk, kp, t0 * BKV, kv_seq, tid);
+  load_tile<D>(sv, vp, t0 * BKV, kv_seq, tid);
   cp_async_commit();
-  if (n_tiles > 1) {
-    load_tile<D>(sk + TILE, kp, BKV, kv_seq, tid);
-    load_tile<D>(sv + TILE, vp, BKV, kv_seq, tid);
+  if (t0 + 1 < n_tiles) {
+    load_tile<D>(sk + TILE, kp, (t0 + 1) * BKV, kv_seq, tid);
+    load_tile<D>(sv + TILE, vp, (t0 + 1) * BKV, kv_seq, tid);
   }
   cp_async_commit();
 
@@ -445,8 +468,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 #pragma unroll
   for (int i = 0; i < NPV / 2; ++i) acc[i] = 0.f;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & 1;
+  for (int t = t0; t < n_tiles; ++t) {
+    const int st = (t - t0) & 1;
     const int kv0 = t * BKV;
     cp_async_wait1();  // this thread's copies of tile t have landed
     fence_async_shared();
@@ -469,7 +492,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     fence_regs(s);
 
     // mask, then the online softmax in f32 (two quad shuffles a row)
-    const bool edge = kv0 + BKV > kv_seq || (causal && kv0 + BKV - 1 > q0 + off);
+    const bool edge = kv0 + BKV > kv_seq || (causal && kv0 + BKV - 1 > q0 + off) ||
+                      kv0 < band_lo;
     float mx[2] = {NEG_BIG, NEG_BIG};
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -481,7 +505,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
           if (edge) {
             const int k_pos = kv0 + 8 * j + c0 + e;
             const int q_pos = q0 + r0 + 8 * hh + off;
-            if (k_pos >= kv_seq || (causal && k_pos > q_pos)) x = NEG_BIG;
+            if (k_pos >= kv_seq || (causal && k_pos > q_pos) ||
+                (window > 0 && q_pos - k_pos >= window))
+              x = NEG_BIG;
           }
           s[4 * j + 2 * hh + e] = x;
           mx[hh] = fmaxf(mx[hh], x);
@@ -489,6 +515,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
       }
     }
     float alpha[2];
+    float m_sub[2];  // the row's max, or 0 while no key is kept
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
@@ -496,6 +523,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
       const float m_new = fmaxf(m[hh], mx[hh]);
       alpha[hh] = exp2f(m[hh] - m_new);
       m[hh] = m_new;
+      m_sub[hh] = m_new > NEG_BIG ? m_new : 0.f;
       l[hh] *= alpha[hh];
     }
     // P in bf16, as the PV wgmma's A fragment: register 4kk + i of the
@@ -504,8 +532,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int hh = i % 2;
-      const float p0 = exp2f(s[2 * i] - m[hh]);
-      const float p1 = exp2f(s[2 * i + 1] - m[hh]);
+      const float p0 = exp2f(s[2 * i] - m_sub[hh]);
+      const float p1 = exp2f(s[2 * i + 1] - m_sub[hh]);
       l[hh] += p0 + p1;
       pa[i] = pack_bf16(p0, p1);
     }
@@ -559,7 +587,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int batch, int q_heads,
-               int kv_heads, int q_seq, int kv_seq, int causal, float sm_scale,
+               int kv_heads, int q_seq, int kv_seq, int causal, int window, float sm_scale,
                cudaStream_t stream) {
   // Above 48 KB of dynamic shared memory needs the opt-in. It is set once,
   // at the first launch, so that no later launch (one inside a CUDA graph
@@ -575,13 +603,13 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int batch, 
   dim3 grid((q_seq + BQ - 1) / BQ, batch * q_heads);
   flash_kernel<float, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), q_heads, kv_heads, q_seq, kv_seq, causal, sm_scale);
+      static_cast<float*>(o), q_heads, kv_heads, q_seq, kv_seq, causal, window, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int batch, int q_heads,
-                int kv_heads, int q_seq, int kv_seq, int causal, float sm_scale,
+                int kv_heads, int q_seq, int kv_seq, int causal, int window, float sm_scale,
                 cudaStream_t stream) {
   // Q and two stages of K and V, plus room to align the first tile to 1024
   static bool configured = false;
@@ -596,7 +624,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int batch,
   flash_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), q_heads, kv_heads,
-      q_seq, kv_seq, causal, sm_scale);
+      q_seq, kv_seq, causal, window, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -604,14 +632,16 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int batch,
 
 // q, o (batch, q_heads, q_seq, d); k, v (batch, kv_heads, kv_seq, d); all
 // contiguous, bf16 ones 16-byte aligned. dtype: 0 = float32 (the FFMA body),
-// 1 = bfloat16 (the tensor-core body). d in {64, 96, 128}.
+// 1 = bfloat16 (the tensor-core body). d in {64, 96, 128}. window: the
+// sliding window in keys, 0 for none.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      int batch, int q_heads, int kv_heads, int q_seq,
-                                     int kv_seq, int d, int causal, float sm_scale, int dtype,
-                                     void* stream) {
+                                     int kv_seq, int d, int causal, int window, float sm_scale,
+                                     int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FLASH_ARGS q, k, v, o, batch, q_heads, kv_heads, q_seq, kv_seq, causal, sm_scale, s
+#define REPRO_FLASH_ARGS \
+  q, k, v, o, batch, q_heads, kv_heads, q_seq, kv_seq, causal, window, sm_scale, s
   if (dtype == 0) {
     switch (d) {
       case 64: return launch_f32<64>(REPRO_FLASH_ARGS);

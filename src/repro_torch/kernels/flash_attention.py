@@ -13,7 +13,10 @@ a ``cp.async`` ring); f32 stays IEEE FFMA.
 :func:`flash_attention` launches the kernel and takes CUDA tensors only; its
 plain version is :func:`plain` (``ref.attention_ref``). The causal mask is
 end-aligned (``q_pos = i + kv_seq - q_seq``) as in the plain version; causal
-calls need ``q_seq <= kv_seq``.
+calls need ``q_seq <= kv_seq``. With ``window`` a key is kept only where
+``q_pos - k_pos < window`` (a sliding window, zamba2's shared attention), with
+or without the causal mask, as the plain version keeps it; the kernel then
+reads only the kv tiles of each q tile's band.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ def flash_attention(
     *,
     causal: bool = True,
     sm_scale: Optional[float] = None,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
         raise ValueError("flash_attention kernel takes CUDA tensors on one device")
@@ -50,6 +54,8 @@ def flash_attention(
         raise ValueError(f"head_dim {d} not in {_build.HEAD_DIMS}")
     if causal and q_seq > kv_seq:
         raise ValueError(f"causal attention needs q_seq <= kv_seq, got {q_seq} > {kv_seq}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be at least 1, got {window}")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention kernel takes contiguous tensors")
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -61,7 +67,7 @@ def flash_attention(
     with torch.cuda.device(q.device):
         err = _build.kernel("flash_attention")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            batch, q_heads, kv_heads, q_seq, kv_seq, d, int(causal), float(sm_scale),
+            batch, q_heads, kv_heads, q_seq, kv_seq, d, int(causal), window or 0, float(sm_scale),
             _build.DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream,
         )
     _build.check("flash_attention", err)

@@ -50,12 +50,13 @@ def flash_attention(
     *,
     causal: bool = True,
     sm_scale: Optional[float] = None,
+    window: Optional[int] = None,
     use_kernel: bool = True,
 ) -> torch.Tensor:
     if use_kernel and q.is_cuda:
-        return _flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+        return _flash_attention(q, k, v, causal=causal, sm_scale=sm_scale, window=window)
     plain["flash_attention"] += 1
-    return ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+    return ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale, window=window)
 
 
 def decode_attention(

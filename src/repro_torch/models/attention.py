@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..kernels import ops, ref
+from ..kernels import ops
 from .layers import normal_init, rms_norm, rope
 
 
@@ -98,11 +98,9 @@ def prefill_attention(
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Self-attention over the sequence (causal, or bidirectional with
     ``causal=False``), or with ``cross_kv`` attention of the sequence's
-    queries over given keys and values. Returns (out (B,S,d), (k, v) in
-    (B,K,S,hd) layout).
-
-    A sliding window has no kernel yet (only zamba2, a hybrid, uses one):
-    on a CUDA tensor it raises; on the CPU it takes the plain version."""
+    queries over given keys and values, each optionally within a sliding
+    ``window`` (zamba2's shared attention). Returns (out (B,S,d), (k, v) in
+    (B,K,S,hd) layout)."""
     if cross_kv is None:
         q, k, v = _project_qkv(p, x, positions, rope_theta, eps, use_rope)
     else:
@@ -112,13 +110,7 @@ def prefill_attention(
     qh = q.transpose(1, 2).contiguous()
     kh = k.transpose(1, 2).contiguous()
     vh = v.transpose(1, 2).contiguous()
-    if window is not None:
-        if use_kernel and qh.is_cuda:
-            raise NotImplementedError(
-                "sliding-window prefill has no CUDA kernel yet (hybrid family, ROADMAP M9)")
-        out = ref.attention_ref(qh, kh, vh, causal=causal, window=window)
-    else:
-        out = ops.flash_attention(qh, kh, vh, causal=causal, use_kernel=use_kernel)
+    out = ops.flash_attention(qh, kh, vh, causal=causal, window=window, use_kernel=use_kernel)
     y = torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), p.wo)
     return y, (kh, vh)
 

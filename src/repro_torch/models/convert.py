@@ -14,9 +14,16 @@ An encoder-decoder tree (whisper-small) holds ``embed``, ``encoder`` (``ln1``,
 ``self_attn``, ``ln_x``, ``cross_attn``, ``ln2``, ``mlp``), ``final_norm``
 and ``unembed``, stacked over the layer axis in the same way.
 
+A hybrid tree (zamba2) holds ``embed``, ``mamba`` (each Mamba2 block's
+leaves stacked over the layer axis), ``final_norm``, ``unembed`` and
+``shared_attn``: ``ln1``, an unstacked ``AttnParams`` ``attn``, ``ln2`` and
+a SwiGLU ``mlp``. An xLSTM tree holds ``embed``, ``final_norm``,
+``unembed`` and ``groups``, one entry a plan group: an mLSTM group's dict
+stacked over its blocks, or an sLSTM block's dict.
+
 A tree of another family than the model's (an MoE tree for a dense model,
-an encoder-decoder tree for a transformer, or the other way round) is
-refused. Nothing here imports ``jax`` or ``repro``.
+an encoder-decoder tree for a transformer, an xLSTM tree for a hybrid, or
+the other way round) is refused. Nothing here imports ``jax`` or ``repro``.
 """
 from __future__ import annotations
 
@@ -25,9 +32,13 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
+from torch import nn
+
 from .encdec import EncDec
+from .hybrid import Zamba2
 from .moe import MoE
 from .transformer import Transformer
+from .xlstm import XLSTM
 
 _ATTN_FIELDS = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
 _SWIGLU_FIELDS = ("w_gate", "w_up", "w_down")
@@ -46,12 +57,17 @@ def _put(dst: Optional[torch.Tensor], src: Any, name: str) -> None:
     dst.copy_(torch.tensor(arr).to(dst.dtype))  # copies: the source may be read-only
 
 
+_KINDS = {EncDec: "an encoder-decoder", Zamba2: "a hybrid (Mamba2)", XLSTM: "an xLSTM",
+          Transformer: "a decoder-only transformer"}
+
+
 def _family(tree: dict, model) -> None:
-    kind = {True: "an encoder-decoder", False: "a decoder-only"}
-    tree_encdec, model_encdec = "encoder" in tree, isinstance(model, EncDec)
-    if tree_encdec != model_encdec:
-        raise ValueError(f"the tree holds {kind[tree_encdec]} model, the model is "
-                         f"{kind[model_encdec]} one")
+    tree_kind = (EncDec if "encoder" in tree else Zamba2 if "mamba" in tree
+                 else XLSTM if "groups" in tree else Transformer)
+    if not isinstance(model, tree_kind):
+        model_kind = next(k for k in _KINDS if isinstance(model, k))
+        raise ValueError(f"the tree holds {_KINDS[tree_kind]} model, the model is "
+                         f"{_KINDS[model_kind]} one")
 
 
 def _put_attn(dst, attn, i: int, name: str) -> None:
@@ -67,11 +83,15 @@ def _n_layers(stack: dict, modules, name: str) -> None:
 
 
 @torch.no_grad()
-def load_jax_params(model: Union[Transformer, EncDec], tree: dict):
+def load_jax_params(model: Union[Transformer, EncDec, Zamba2, XLSTM], tree: dict):
     """Copy ``tree`` into ``model`` in place; returns ``model``."""
     _family(tree, model)
     if isinstance(model, EncDec):
         return _load_encdec(model, tree)
+    if isinstance(model, Zamba2):
+        return _load_hybrid(model, tree)
+    if isinstance(model, XLSTM):
+        return _load_xlstm(model, tree)
     tree_moe = "router" in tree["layers"]["mlp"]
     model_moe = any(isinstance(blk.mlp, MoE) for blk in model.layers)
     if tree_moe != model_moe:
@@ -118,3 +138,53 @@ def _put_mlp(dst, mlp: dict, i: int, name: str) -> None:
         if dst.shared is not None:
             for f in _SWIGLU_FIELDS:
                 _put(getattr(dst.shared, f), mlp["shared"][f][i], f"{name}.shared.{f}")
+
+
+def _put_fields(dst: nn.Module, src: dict, name: str, i: Optional[int] = None) -> None:
+    """Every parameter of ``dst`` from the same-named leaf of ``src`` (its
+    slice ``i`` where the leaves are stacked over blocks)."""
+    params = dict(dst.named_parameters())
+    if set(src) != set(params):
+        raise ValueError(f"{name}: the tree's fields {sorted(src)} are not the model's "
+                         f"{sorted(params)}")
+    for f, w in params.items():
+        _put(w, src[f] if i is None else src[f][i], f"{name}.{f}")
+
+
+def _load_hybrid(model: Zamba2, tree: dict) -> Zamba2:
+    for name in ("embed", "final_norm", "unembed"):
+        _put(getattr(model, name), tree[name], name)
+    n = np.asarray(tree["mamba"]["ln"]).shape[0]
+    if n != len(model.mamba):
+        raise ValueError(f"mamba: the tree has {n} layers, the model {len(model.mamba)}")
+    for i, blk in enumerate(model.mamba):
+        _put_fields(blk, tree["mamba"], f"mamba[{i}]", i)
+    shared, dst = tree.get("shared_attn"), model.shared_attn
+    if (shared is None) != (dst is None):
+        raise ValueError("shared_attn: present on one side only")
+    if dst is not None:
+        _put(dst.ln1, shared["ln1"], "shared_attn.ln1")
+        _put(dst.ln2, shared["ln2"], "shared_attn.ln2")
+        for f in _ATTN_FIELDS:
+            _put(getattr(dst.attn, f), getattr(shared["attn"], f), f"shared_attn.attn.{f}")
+        _put_fields(dst.mlp, shared["mlp"], "shared_attn.mlp")
+    return model
+
+
+def _load_xlstm(model: XLSTM, tree: dict) -> XLSTM:
+    for name in ("embed", "final_norm", "unembed"):
+        _put(getattr(model, name), tree[name], name)
+    if len(tree["groups"]) != len(model.groups):
+        raise ValueError(f"groups: the tree has {len(tree['groups'])}, the model "
+                         f"{len(model.groups)}")
+    for gi, (src, group) in enumerate(zip(tree["groups"], model.groups)):
+        if not isinstance(group, nn.ModuleList):  # an sLSTM block
+            _put_fields(group, src, f"groups[{gi}]")
+            continue
+        ln = np.asarray(src["ln"])  # an mLSTM run, stacked over its blocks
+        if ln.ndim != 2 or ln.shape[0] != len(group):
+            raise ValueError(f"groups[{gi}]: the tree holds {ln.shape[0] if ln.ndim == 2 else 0} "
+                             f"stacked mLSTM blocks where the model has {len(group)}")
+        for j, blk in enumerate(group):
+            _put_fields(blk, src, f"groups[{gi}][{j}]", j)
+    return model

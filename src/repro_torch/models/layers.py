@@ -15,6 +15,11 @@ def normal_init(shape, scale: float, dtype: torch.dtype, generator: torch.Genera
     return (x * scale).to(dtype)
 
 
+def parameter(shape, dtype: torch.dtype, device: torch.device) -> nn.Parameter:
+    """An uninitialised, frozen weight (the port only serves)."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     dt = x.dtype
     x = x.float()

@@ -14,12 +14,13 @@ counterparts:
     logits, cache = model.prefill_jit(params, batch, cache)
     tokens, cache = model.decode_tokens(params, cache, tok, n_steps)
 
-``params`` is a :class:`~repro_torch.models.transformer.Transformer`
-module, or for the encoder-decoder family (whisper-small) an
-:class:`~repro_torch.models.encdec.EncDec` module, whose ``batch`` is
-``{"frames", "tokens"}`` in ``forward`` and ``{"frames"}`` in ``prefill``.
-The transformer families (dense, moe, vlm) and encdec are ported; the
-recurrent ones raise.
+``params`` is the family's module: a
+:class:`~repro_torch.models.transformer.Transformer` (dense, moe, vlm), an
+:class:`~repro_torch.models.encdec.EncDec` (whisper-small, whose ``batch``
+is ``{"frames", "tokens"}`` in ``forward`` and ``{"frames"}`` in
+``prefill``), a :class:`~repro_torch.models.hybrid.Zamba2` (zamba2-1.2b) or
+an :class:`~repro_torch.models.xlstm.XLSTM` (xlstm-1.3b). Every family of
+``repro`` is ported.
 
 ``decode_tokens`` is the greedy loop that ``repro`` rolls into one
 ``lax.scan``: a fixed-shape loop of ``n_steps`` steps whose argmax stays on
@@ -28,7 +29,11 @@ the loop. On a CUDA device the whole loop is one CUDA graph per ``(B,
 cache_len, n_steps)`` and ``prefill_jit`` one per ``(B, S, cache_len)`` (for
 encdec per ``(B, frames, cache_len)``), captured at the first call of a
 shape and replayed after it (:mod:`repro_torch.models.graphs`); on the CPU
-both run as they are.
+both run as they are. ``cache_len`` is the rows of the cache's K/V (for
+zamba2 its shared block's ring, ``min(max_len, window)``); xlstm's state has
+no rows (it is O(1) in ``max_len``), so its caches and graphs are keyed by
+batch (and prompt length) alone, with ``cache_len`` None: one 0.7 GB state
+a batch size, not one a length bucket.
 ``static_cache`` is the model's own cache per ``(B, cache_len)``, reused by
 every call: the graphs' static buffer. Because step ``t`` depends only on
 steps ``< t``, running extra (bucket-padding) steps never changes the first
@@ -46,13 +51,27 @@ import torch
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
-from . import encdec, transformer
+from . import encdec, hybrid, transformer, xlstm
 from .graphs import GraphCache
 
-_NOT_PORTED = {
-    "xlstm": "the recurrent families are ROADMAP item M9",
-    "hybrid": "the recurrent families are ROADMAP item M9",
+# family -> (module of its functions, its parameter module)
+_FAMILIES = {
+    "dense": (transformer, transformer.Transformer),
+    "moe": (transformer, transformer.Transformer),
+    "vlm": (transformer, transformer.Transformer),
+    "encdec": (encdec, encdec.EncDec),
+    "hybrid": (hybrid, hybrid.Zamba2),
+    "xlstm": (xlstm, xlstm.XLSTM),
 }
+
+
+def cache_len(cache: dict[str, torch.Tensor]) -> Optional[int]:
+    """The rows of a cache's K/V: ``k`` (transformer, encdec), ``attn_k``
+    (zamba2's shared block); None for a cache of recurrent state alone."""
+    for name in ("k", "attn_k"):
+        if name in cache:
+            return cache[name].shape[3]
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,20 +84,20 @@ class Model:
 
     @property
     def _impl(self):
-        """The family's module: ``encdec``, or ``transformer`` for the rest."""
-        return encdec if self.cfg.family == "encdec" else transformer
+        """The family's module of functions."""
+        return _FAMILIES[self.cfg.family][0]
 
     @property
     def _input(self) -> str:
         """The batch key that ``prefill`` reads."""
         return "frames" if self._impl is encdec else "tokens"
 
-    def init(self, seed: int) -> Union[transformer.Transformer, encdec.EncDec]:
+    def init(self, seed: int) -> Union[transformer.Transformer, encdec.EncDec, hybrid.Zamba2,
+                                       xlstm.XLSTM]:
         """Fresh weights drawn from a ``torch.Generator`` seeded with ``seed``
         on the target device (``repro``'s scales, not its values)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        module = encdec.EncDec if self._impl is encdec else transformer.Transformer
-        return module(self.cfg, self.device).init(gen)
+        return _FAMILIES[self.cfg.family][1](self.cfg, self.device).init(gen)
 
     def forward(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """(logits (B, S, V), aux loss), as ``repro``'s ``Model.forward``."""
@@ -101,13 +120,25 @@ class Model:
         """CUDA graphs captured, replayed and dropped for new weights."""
         return self.graphs.stats
 
-    def static_cache(self, batch_size: int, max_len: int):
-        """The model's KV cache for ``(batch_size, max_len)``, made at the
-        first call and returned again after. A request never reads an earlier
-        one's rows: prefill writes the prompt's rows and sets ``lengths``, and
-        decode attention reads only below ``lengths``."""
-        return self.graphs.static_cache((batch_size, max_len),
+    def static_cache(self, batch_size: int, max_len: Optional[int]):
+        """The model's cache for ``(batch_size, max_len)``, made at the first
+        call and returned again after: one a ``(batch_size, cache_len)``, so
+        ``max_len`` past a sliding window shares the window's cache, and an
+        xlstm model has one a batch size. A request never reads an earlier
+        one's rows or state: prefill writes the prompt's rows and sets
+        ``lengths``, and decode attention reads only below ``lengths``;
+        prefill starts every recurrent state from its initial value and
+        overwrites the cache's."""
+        rows = self._rows(max_len)
+        return self.graphs.static_cache((batch_size, rows),
                                         lambda: self.init_cache(batch_size, max_len))
+
+    def _rows(self, max_len: Optional[int]) -> Optional[int]:
+        """``cache_len`` of ``init_cache(B, max_len)``."""
+        if self.cfg.family == "xlstm":
+            return None
+        window = self.cfg.sliding_window
+        return min(max_len, window) if window is not None else max_len
 
     def prefill_jit(self, params, batch, cache):
         """``prefill``, as one CUDA graph per (B, S, cache_len) on the card;
@@ -117,13 +148,13 @@ class Model:
         name = self._input
         inputs = batch[name]
         B, S = inputs.shape[:2]
-        cache_len = cache["k"].shape[3]
-        static = self.static_cache(B, cache_len)
+        rows = cache_len(cache)
+        static = self.static_cache(B, rows)
 
         def body(x):
             return self.prefill(params, {name: x}, static)[0]
 
-        key = ("prefill", B, S, cache_len)
+        key = ("prefill", B, S, rows)
         return self.graphs.run(key, params, inputs, body, cache, static), cache
 
     def decode_tokens(self, params, cache, tokens: torch.Tensor, n_steps: int):
@@ -132,13 +163,13 @@ class Model:
         n_steps) int32 tokens on the device, the cache)."""
         if self.device.type != "cuda":
             return self._decode_loop(params, cache, tokens, n_steps), cache
-        B, cache_len = tokens.shape[0], cache["k"].shape[3]
-        static = self.static_cache(B, cache_len)
+        B, rows = tokens.shape[0], cache_len(cache)
+        static = self.static_cache(B, rows)
 
         def body(toks):
             return self._decode_loop(params, static, toks, n_steps)
 
-        key = ("decode", B, cache_len, n_steps)
+        key = ("decode", B, rows, n_steps)
         return self.graphs.run(key, params, tokens, body, cache, static), cache
 
     def _decode_loop(self, params, cache, tokens: torch.Tensor, n_steps: int) -> torch.Tensor:
@@ -153,11 +184,8 @@ class Model:
 
 def build_model(cfg: ArchConfig, *, device: Optional[Union[str, torch.device]] = None,
                 use_kernels: bool = True) -> Model:
-    fam = cfg.family
-    if fam in _NOT_PORTED:
-        raise NotImplementedError(f"{cfg.arch_id}: {_NOT_PORTED[fam]}, not ported yet")
-    if fam not in ("dense", "moe", "vlm", "encdec"):
-        raise ValueError(f"unknown family {fam!r}")
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
     return Model(cfg=cfg, device=resolve_device(device), use_kernels=use_kernels)
 
 

@@ -23,7 +23,8 @@ Shapes are padded to buckets exactly as in ``repro`` (``decode_mode="jit"``):
 
 An encoder-decoder arch (whisper-small) is fed zero audio frames, the stub
 frontend's output, exactly as ``repro`` feeds it, and decodes from the
-prompt's first token (:meth:`ModelServingBackend.prefill_inputs`).
+prompt's first token (:meth:`ModelServingBackend.prefill_inputs`). The
+recurrent archs (zamba2-1.2b, xlstm-1.3b) are served as the transformers are.
 
 The bucketed path runs ``Model.prefill_jit`` and ``Model.decode_tokens`` on
 the model's static cache of the bucket, as ``repro`` runs its jitted pair: on
@@ -238,7 +239,9 @@ class ModelServingBackend:
         # cache length is bucketed too, so one captured decode loop and one
         # static cache serve every prompt length in the bucket (decode
         # attention masks by `lengths`, so the padded tail and an earlier
-        # request's rows are never read)
+        # request's rows are never read; prefill starts every recurrent state
+        # afresh, and xlstm's state has one cache a batch size whatever the
+        # bucket)
         cache_len = _bucket(S + Tb, base=self.decode_bucket)
         key = (self.cfg.family, B, S, Tb, cache_len)
         if key not in self._compiled_buckets:

@@ -159,6 +159,74 @@ def test_whisper_captured_path_matches_eager_and_counts_replays():
     assert m.graph_stats == {"captures": 2, "replays": 6, "dropped": 0}
 
 
+def _recurrent(arch, dtype="bfloat16"):
+    m = build_model(dataclasses.replace(get_smoke_config(arch), dtype=dtype))
+    return m, m.init(0)
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_recurrent_captured_path_matches_eager_loop(arch, dtype):
+    """The recurrent families' prefill (the chunked scans, the sLSTM's loop
+    over tokens) and decode loop (every state written in place) captured,
+    against the eager path on a fresh cache: tokens equal, prefill logits
+    and the final states within TOL[dtype] of their largest value. zamba2's
+    prompt (80) is past its smoke window (64): K2 runs with the window and
+    the ring is rolled; launches are exact and no plain call is made."""
+    m, params = _recurrent(arch, dtype)
+    cfg = m.cfg
+    S, cache_len, T = 80, 96, 16
+    prompt = _prompt(S, cfg.vocab, 11)
+    cache = m.static_cache(1, cache_len)
+    _build.reset_counters()
+    logits, _ = m.prefill_jit(params, {"tokens": prompt}, cache)
+    toks, _ = m.decode_tokens(params, cache, prompt[:, -1:], T)
+    torch.cuda.synchronize()
+    n_attn = cfg.n_layers // cfg.hybrid_attn_every if arch == "zamba2-1.2b" else 0
+    assert _build.launches == {"matmul": 0, "flash_attention": n_attn,
+                               "decode_attention": n_attn * T}
+    assert sum(_build.plain.values()) == 0
+    want_logits, want_toks, want = _eager(m, params, prompt, cache_len, T)
+    assert m.graph_stats == {"captures": 2, "replays": 2, "dropped": 0}
+    assert torch.equal(toks, want_toks)
+    assert _rel(logits, want_logits) <= TOL[dtype]
+    for name, t in want.items():
+        if t.is_floating_point():
+            assert _rel(cache[name], t) <= TOL[dtype], name
+    assert torch.equal(cache["lengths"], want["lengths"])
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_recurrent_backend_reuse_equals_a_fresh_cache_each(arch):
+    """Back-to-back requests on the backend's one static cache give the
+    tokens each gives alone from a fresh cache: the captured prefill starts
+    every state from its initial value. xlstm's cache and graphs are keyed
+    by batch (and prompt length), not by the cache-length bucket."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="bfloat16")
+    be = ModelServingBackend(cfg, seed=0)
+    rs = np.random.RandomState(5)
+    reqs = [ServeRequest(prompt=rs.randint(0, cfg.vocab, size=s).astype(np.int32),
+                         max_new_tokens=6) for s in (20, 13, 20, 60)]
+    got = [be.run_model(r) for r in reqs]
+    for r, toks in zip(reqs, got):
+        prompt = torch.tensor(r.prompt, device="cuda")[None]
+        cache_len = 32 if len(r.prompt) < 24 else 128
+        want = _eager(be.model, be.params, prompt, cache_len, 8)[1]
+        np.testing.assert_array_equal(toks, want[0, :6].cpu().numpy())
+    caches = be.model.graphs.caches
+    if arch == "xlstm-1.3b":  # one cache; 3 prompt shapes, 1 decode graph
+        assert list(caches) == [(1, None)]
+        assert be.model.graph_stats == {"captures": 4, "replays": 8, "dropped": 0}
+    else:  # buckets 32 and 128, the second held as the smoke window's 64 rows:
+        # 3 prefill graphs, 2 decode graphs
+        assert sorted(caches) == [(1, 32), (1, 64)]
+        assert be.model.graph_stats == {"captures": 5, "replays": 8, "dropped": 0}
+
+
 def test_launch_counts_are_replays_times_what_was_captured():
     m = _model()
     params = m.init(0)

@@ -104,9 +104,11 @@ def test_near_copies_differ_from_reference_only_by_their_added_lines(rel):
 
 def test_scans_cover_every_module_of_the_port():
     scanned = {p.relative_to(PORT).as_posix() for p in _scanned_files() if p.is_relative_to(PORT)}
-    assert {"models/encdec.py", "serving/pipeline.py"} <= scanned
+    new = {"models/encdec.py", "serving/pipeline.py", "models/ssm.py", "models/hybrid.py",
+           "models/xlstm.py"}
+    assert new <= scanned
     mods = _port_modules()
-    assert "repro_torch.models.encdec" in mods and "repro_torch.serving.pipeline" in mods
+    assert {"repro_torch." + m[:-3].replace("/", ".") for m in new} <= set(mods)
 
 
 def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
@@ -123,8 +125,9 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
     cfg = get_smoke_config("llama3.2-1b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MatmulProbe()
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        build_model(cfg)
+    for arch in ("llama3.2-1b", "zamba2-1.2b", "xlstm-1.3b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(get_smoke_config(arch))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ModelServingBackend(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -132,4 +135,5 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MinosServingEngine(cfg, MinosPolicy(elysium_threshold=200.0), Pricing.tpu_chip_seconds(4))
     # asking for the CPU is the way to run there
-    assert build_model(cfg, device="cpu").device.type == "cpu"
+    for arch in ("llama3.2-1b", "zamba2-1.2b", "xlstm-1.3b"):
+        assert build_model(get_smoke_config(arch), device="cpu").device.type == "cpu"

@@ -126,6 +126,28 @@ def test_attention_ref_window_and_lengths_match_oracle(window):
                               lengths=jnp.asarray(lengths)), 2e-3)
 
 
+@pytest.mark.parametrize("window", [1, 17, 64, 100, 500])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("qh,kvh,q_seq,kv_seq", [(4, 4, 130, 130), (8, 2, 130, 130),
+                                                 (8, 2, 45, 130)])
+def test_flash_dispatch_window_matches_oracle(window, causal, qh, kvh, q_seq, kv_seq):
+    """``ops.flash_attention(window=)`` on the CPU (the kernel's plain
+    version) against the oracle ``repro``'s windowed prefill calls: windows
+    below, at and past the sequence, GQA 1 and 4, fewer queries than keys."""
+    qj, qt = _both(_np((2, qh, q_seq, 64), 10), "float32")
+    kj, kt = _both(_np((2, kvh, kv_seq, 64), 11), "float32")
+    vj, vt = _both(_np((2, kvh, kv_seq, 64), 12), "float32")
+    ops.reset_counters()
+    got = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert ops.plain["flash_attention"] == 1 and sum(ops.launches.values()) == 0
+    ops.reset_counters()
+    _close(got, jref.attention_ref(qj, kj, vj, causal=causal, window=window), 2e-3)
+    if window < kv_seq:  # the window really masks
+        full = ops.flash_attention(qt, kt, vt, causal=causal)
+        assert not torch.allclose(got, full)
+        ops.reset_counters()
+
+
 @pytest.mark.parametrize("batch,qh,kvh,S,d,block_k", [
     (2, 4, 2, 512, 64, 256),
     (1, 8, 8, 1024, 128, 128),

@@ -118,6 +118,42 @@ def test_flash_kernel_matches_plain(batch, qh, kvh, q_seq, kv_seq, d, causal, dt
     assert torch.equal(ops.flash_attention(q, k, v, causal=causal), out)
 
 
+# (batch, q_heads, kv_heads, q_seq, kv_seq, d): GQA group 1 and 4, ragged
+# tails, fewer queries than keys, and zamba2's shared attention (32/32 heads)
+WINDOW_SHAPES = [
+    (1, 8, 8, 200, 200, 64), (2, 8, 2, 130, 130, 128), (1, 32, 8, 77, 250, 64),
+    (1, 4, 4, 65, 65, 96), (1, 32, 32, 250, 250, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,qh,kvh,q_seq,kv_seq,d", WINDOW_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [1, 37, 64, 100, 4096])
+def test_flash_kernel_window_matches_plain(batch, qh, kvh, q_seq, kv_seq, d, causal, window,
+                                           dtype):
+    """The sliding window: below the sequence, a multiple of the 64-key tile
+    and not, 1 (each row its own key), and past the sequence (vacuous:
+    zamba2's 4096 at served prompts, which must equal the unwindowed call)."""
+    q = _rand((batch, qh, q_seq, d), dtype, 3)
+    k, v = _rand((batch, kvh, kv_seq, d), dtype, 4), _rand((batch, kvh, kv_seq, d), dtype, 5)
+    ops.reset_counters()
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.launches["flash_attention"] == 1 and ops.plain["flash_attention"] == 0
+    _assert_rows_close(out, ref.attention_ref(q, k, v, causal=causal, window=window), dtype,
+                       TOL["flash_attention"][dtype])
+    assert torch.equal(ops.flash_attention(q, k, v, causal=causal, window=window), out)
+    if window >= kv_seq + max(q_seq - kv_seq, 0):
+        assert torch.equal(ops.flash_attention(q, k, v, causal=causal), out)
+    ops.reset_counters()
+
+
+def test_flash_kernel_refuses_a_window_below_one():
+    q = _rand((1, 4, 64, 64), "bfloat16", 6)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, q, q, window=0)
+
+
 # (batch, q_heads, kv_heads, S, d, lengths); lengths None: random in [1, S], the last 1
 DECODE_CASES = [
     (2, 4, 2, 512, 64, None), (1, 8, 8, 1024, 128, None), (3, 4, 1, 256, 64, None),

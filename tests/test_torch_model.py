@@ -155,12 +155,6 @@ def test_init_is_seeded_with_the_reference_scales():
     assert torch.all(a.final_norm == 1)
 
 
-@pytest.mark.parametrize("arch,item", [("xlstm-1.3b", "M9"), ("zamba2-1.2b", "M9")])
-def test_unported_families_raise(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(get_smoke_config(arch), device="cpu")
-
-
 def test_prompt_longer_than_the_cache_raises():
     """A known difference, pinned: with no sliding window, ``repro``'s
     prefill returns a cache grown to the prompt's length, whose next decode

@@ -13,6 +13,7 @@ the ``jit_stats`` bookkeeping.
 import jax
 import numpy as np
 import pytest
+import torch
 
 import repro.core.control as jctl
 import repro.core.cost as jcost
@@ -84,6 +85,8 @@ def _assert_identical(je, te, jres, tres):
     pytest.param("adaptive", {}, "llama3.2-1b", id="adaptive-knobs1"),
     pytest.param("reprobe", {"contention_rho": 0.9}, "llama3.2-1b", id="reprobe-knobs2"),
     pytest.param("classic", {}, "granite-moe-1b-a400m", id="classic-granite-moe"),
+    pytest.param("classic", {}, "zamba2-1.2b", id="classic-zamba2"),
+    pytest.param("adaptive", {}, "xlstm-1.3b", id="adaptive-xlstm"),
 ])
 def test_engine_matches_reference_exactly(case, knobs, arch):
     je, te, jres, tres = _serve_both(arch, case, **knobs)
@@ -165,6 +168,39 @@ def test_time_model_and_calibration_run(dense_backend):
     assert dense_backend.time_model_ms(req, mode="jit") > 0.0
     alpha = dense_backend.calibrate_load_slowdown(loads=(1, 2), max_new_tokens=2, repeats=1)
     assert isinstance(alpha, float) and alpha >= 0.0
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_back_to_back_requests_on_the_bucketed_path_equal_a_fresh_cache_each(arch):
+    """Requests served one after another on the backend's reused static
+    cache (the recurrent state of the one before left in it, then noise)
+    give the tokens each gives alone from a fresh ``init_cache``, as the
+    reference serves every request."""
+    be = ModelServingBackend(get_smoke_config(arch), seed=3, device="cpu")
+    rs = np.random.RandomState(5)
+    reqs = [ServeRequest(prompt=rs.randint(0, be.cfg.vocab, size=s).astype(np.int32),
+                         max_new_tokens=6) for s in (20, 11, 23)]
+    Tb = _bucket(6, base=be.decode_bucket)
+    cache_len = _bucket(20 + Tb, base=be.decode_bucket)
+    assert all(_bucket(len(r.prompt) + Tb, base=be.decode_bucket) == cache_len for r in reqs)
+
+    def fresh(req):
+        m, p = be.model, be.params
+        cache = m.init_cache(1, cache_len)
+        prompt = torch.tensor(req.prompt)[None]
+        m.prefill(p, {"tokens": prompt}, cache)
+        return m.decode_tokens(p, cache, prompt[:, -1:], Tb)[0][0, :req.max_new_tokens].numpy()
+
+    static = be.model.static_cache(1, cache_len)
+    for i, req in enumerate(reqs):
+        if i == 2:
+            gen = torch.Generator().manual_seed(0)
+            for name, t in static.items():
+                if t.is_floating_point():
+                    t.copy_(100 * torch.randn(t.shape, generator=gen))
+        np.testing.assert_array_equal(be.run_model(req), fresh(req))
+    assert be.model.static_cache(1, cache_len) is static
+    np.testing.assert_array_equal(be.run_model(reqs[0], mode="eager"), fresh(reqs[0]))
 
 
 def test_decode_mode_validated():
