@@ -105,7 +105,38 @@ Run from the root of a checkout. It imports ``src/repro_torch`` (never
    largest, greedy tokens equal); (d) for both, phase 6's times, each
    decode step's byte bound, the graphs' memory, and K2 and K3 at zamba2's
    served shapes and K2 where the window masks (q(1,32,1024,64), window
-   256) beside SDPA with a band mask.
+   256) beside SDPA with a band mask;
+11. training (``train/loop.py``, ``optim/adamw.py``): (a) full-width,
+   full-depth llama3.2-1b (bf16 parameters, f32 master/mu/nu, remat on)
+   takes 20 AdamW steps (``TrainConfig(peak_lr=1e-3, warmup_steps=2)``) at
+   batch 4 x 2,048 from ``TokenStream(seed=--seed)`` through
+   ``make_train_step``, with the launches held exactly (K2 twice a layer a
+   step, the forward and the remat recompute; one plain recomputation a
+   layer in the backward; no plain call, no K1 or K3), the loss finite and
+   the mean of the last 5 steps below the first; (b) one f32 loss and its
+   gradients at full width and 4 layers, the kernel path against the plain
+   path (loss within 1e-5 relative, each gradient within 1e-4 of its largest
+   |grad|), and one bf16 loss and its gradients at full width and 4 layers
+   at 11a's batch (K2's bf16 body, as 11a runs it), the kernel path against
+   the plain path within twice the plain path's own distance from an f32
+   run of the same weights; (c) ``FlashAttention`` alone against autograd
+   through the plain version: the bf16 kernel at 11a's shape (q(4,32,2048,64),
+   kv(4,8,2048,64), causal), and wiring cases at phase 2's shapes (causal,
+   non-causal, window 256, GQA group 1 and 4, fewer queries than keys; f32
+   1e-4 of the largest value, bf16 phase 2's per-row limits); and the bf16
+   kernel at 11a's shape on the kernels line's inputs, per row as phase 2
+   holds it; (d) the same as (b) for granite-moe-1b-a400m (2 layers, the aux
+   loss), whisper-small (2 + 2 layers, 1,500 frames: non-causal K2 and cross
+   attention), zamba2-1.2b (one Mamba group and one shared-block
+   application, 4,352 tokens so that the window masks; again at a second
+   seed, and the plain path against itself on the batch doubled as a
+   reading of the f32 rounding) with exact launches, and xlstm-1.3b (8
+   layers, no kernel: the card against the CPU); (e) a checkpoint round trip (save after 3 steps, restore into fresh
+   modules and state: step 4 bitwise equal); (f) 11a's times: step wall,
+   forward, backward and optimizer (CUDA events), tokens/s, MFU, K2's and
+   the plain attention backward's shares of a step and the idle share
+   (``torch.profiler``), peak memory, the optimizer's byte bound, and K2 at
+   the training shape beside SDPA.
 
 It exits non-zero, printing no result, if there is no CUDA device or any
 phase fails. Its last two lines are the card's ``nvidia-smi`` name and power
@@ -1941,6 +1972,560 @@ def xlstm_phase(args, card_str):
     print(f"[10] {XLSTM} took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training (M10)
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "llama3.2-1b"      # 11a: full width and depth, bf16, remat on
+TRAIN_STEPS = 20
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_TIMED = 3                 # 11f: instrumented steps after the 20
+PLAIN_LAYERS, PLAIN_BATCH, PLAIN_SEQ = 4, 2, 512  # 11b: f32, kernel path against plain
+BF16_TRAIN_LAYERS = 4           # 11b: bf16, kernel path against plain, at 11a's batch
+# 11d: each other family at full width, depth cut (layers, and for whisper
+# encoder layers), f32, batch x tokens
+TRAIN_FAMILIES = {
+    MOE_ARCH: dict(n_layers=2, batch=2, seq=512),
+    WHISPER: dict(n_layers=2, n_encoder_layers=2, batch=2, seq=256),
+    # one Mamba group and one application of the shared block; 4,352 tokens so
+    # that the window (4,096) masks keys
+    ZAMBA: dict(n_layers=6, batch=1, seq=4352),
+    # one mLSTM group and the sLSTM; the card against the CPU
+    XLSTM: dict(n_layers=8, batch=1, seq=256),
+}
+CKPT_LAYERS, CKPT_BATCH, CKPT_SEQ = 2, 2, 256  # 11e: llama3.2-1b at full width, bf16
+
+
+def train_batch(cfg, batch, seq, seed, device=None):
+    """A ``TokenStream`` batch on ``device`` (the card); encdec adds random
+    frames."""
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.train.loop import to_device
+
+    device = device or DEVICE
+    b = to_device(next(TokenStream(vocab=cfg.vocab, batch=batch, seq_len=seq, seed=seed)),
+                  torch.device(device))
+    if cfg.family == "encdec":
+        b["frames"] = rand((batch, cfg.encoder_frames, cfg.d_model), torch.float32, seed + 1,
+                           device=device)
+    return b
+
+
+def loss_and_grads(model, params, batch):
+    """``Model.loss`` (remat on) and its gradients: (loss, metrics, {name:
+    grad}), the gradients copied out."""
+    params.requires_grad_(True)
+    params.zero_grad(set_to_none=True)
+    loss, met = model.loss(params, batch, remat=True)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in params.named_parameters()}
+    params.zero_grad(set_to_none=True)
+    return loss.detach(), {k: v.detach() for k, v in met.items()}, grads
+
+
+def grad_shares(got, want, scale=1e-4):
+    """{name: max |got - want| over ``scale`` times the largest |want|}."""
+    out = {}
+    for n, w in want.items():
+        top = w.float().abs().max().item()
+        err = (got[n].float().to(w.device) - w.float()).abs().max().item()
+        out[n] = err / (scale * top) if top > 0 else (0.0 if err == 0 else float("inf"))
+    return out
+
+
+def hold_grads(tag, got, want, loss_got, loss_want, ph):
+    """Loss within 1e-5 relative; each gradient within 1e-4 of its largest
+    |grad| in ``want``. Prints the worst shares of both limits and returns
+    every gradient's share."""
+    loss_rel = abs(loss_got.item() - loss_want.item()) / abs(loss_want.item())
+    shares = grad_shares(got, want)
+    worst_name = max(shares, key=shares.get)
+    worst = shares[worst_name]
+    finite = torch.isfinite(loss_got).item() and all(torch.isfinite(g).all() for g in got.values())
+    print(f"[{ph}] {tag}: loss {loss_got.item():.6f} against {loss_want.item():.6f}, relative "
+          f"{loss_rel:.3e} (limit 1e-5); {len(want)} gradients, the worst at {worst:.3f} of its "
+          f"limit (1e-4 of its largest |grad|): {worst_name}")
+    if loss_rel > 1e-5 or worst > 1 or not finite:
+        raise PhaseError(f"{tag}: the kernel path's loss or gradients are outside the limits")
+    return shares
+
+
+def kernel_vs_plain_step(cfg, batch, seed, expected, ph, tag):
+    """One f32 loss and its gradients on the kernel path and on the plain
+    path, on the same weights and batch; the kernel path launches exactly
+    ``expected`` (K2 forward and recompute; plain recomputations in the
+    backward) and calls no plain version."""
+    from repro_torch.kernels import _build
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg)
+    params = model.init(seed)
+    _build.reset_counters()
+    loss, met, grads = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    counts = {"launches": dict(_build.launches), "backward": dict(_build.backward),
+              "plain": dict(_build.plain)}
+    if counts != expected:
+        raise PhaseError(f"{tag}: counts {counts}; expected {expected}")
+    plain_model = build_model(cfg, use_kernels=False)
+    ploss, pmet, pgrads = loss_and_grads(plain_model, params, batch)
+    print(f"[{ph}] {tag}: kernel path launches exactly {counts['launches']}, plain "
+          f"recomputations in the backward {counts['backward']}, no plain call; aux "
+          f"{met['aux'].item():.6e} (plain path {pmet['aux'].item():.6e})")
+    shares = hold_grads(f"{tag} f32, kernel path against plain path", grads, pgrads, loss, ploss,
+                        ph)
+    del params, grads, pgrads
+    torch.cuda.empty_cache()
+    return shares
+
+
+def bf16_train_step(cfg, batch, seed, tag):
+    """11b, bf16: one loss and its gradients with K2's bf16 body, the one 11a
+    runs, at 11a's batch, the kernel path against the plain path on the same
+    weights. A plain f32 run of the same weights measures how far the plain
+    bf16 path is from the arithmetic both bf16 paths round: the loss and
+    each gradient (its max |difference| over its largest |grad|) may differ
+    from the plain path's by twice the plain path's own distance from f32,
+    as phase 5 holds the bf16 logits. The kernel path launches K2 twice a
+    layer and recomputes the plain version once a layer, and calls no plain
+    version."""
+    from repro_torch.kernels import _build
+    from repro_torch.models.model import build_model
+
+    t0 = time.perf_counter()
+    L = cfg.n_layers
+    model = build_model(cfg)
+    params = model.init(seed)
+    _build.reset_counters()
+    loss, _, grads = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    counts = {"launches": dict(_build.launches), "backward": dict(_build.backward),
+              "plain": dict(_build.plain)}
+    expected = {"launches": {"matmul": 0, "flash_attention": 2 * L, "decode_attention": 0},
+                "backward": {"matmul": 0, "flash_attention": L, "decode_attention": 0},
+                "plain": {"matmul": 0, "flash_attention": 0, "decode_attention": 0}}
+    if counts != expected:
+        raise PhaseError(f"{tag}: counts {counts}; expected {expected}")
+    ploss, _, pgrads = loss_and_grads(build_model(cfg, use_kernels=False), params, batch)
+    m32, p32 = f32_copy(cfg, params, device=model.device)
+    floss, _, fgrads = loss_and_grads(m32, p32, batch)
+    del m32, p32
+
+    def rel(a, b):
+        return (a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+
+    rows = {"loss": (loss, ploss, floss), **{n: (grads[n], pgrads[n], fgrads[n]) for n in pgrads}}
+    shares = {}
+    for n, (k, p, f) in rows.items():
+        err, floor = rel(k, p), rel(p, f)
+        shares[n] = (err / (2 * floor) if floor > 0 else (0.0 if err == 0 else float("inf")),
+                     err, floor, rel(k, f))
+    worst = max(shares, key=lambda n: shares[n][0])
+    finite = torch.isfinite(loss).item() and all(torch.isfinite(g).all() for g in grads.values())
+    share, err, floor, from_f32 = shares[worst]
+    ls, le, lf, lk = shares["loss"]
+    print(f"[11b] {tag} bf16, kernel path against plain path ({time.perf_counter() - t0:.1f} s): "
+          f"launches exactly {counts['launches']['flash_attention']} K2 and "
+          f"{counts['backward']['flash_attention']} plain recomputations in the backward, no plain "
+          f"call; loss {loss.item():.6f} against {ploss.item():.6f} (f32 {floss.item():.6f}): "
+          f"relative {le:.3e}, the plain path from f32 {lf:.3e}, the kernel path from f32 "
+          f"{lk:.3e}, {ls:.3f} of its limit; {len(grads)} gradients (max |difference| / largest "
+          f"|grad|), the worst at {share:.3f} of its limit: {worst}, kernel against plain "
+          f"{err:.3e}, plain from f32 {floor:.3e}, kernel from f32 {from_f32:.3e} (limit: twice "
+          f"the plain path's distance from f32)")
+    if share > 1 or not finite:
+        raise PhaseError(f"{tag}: the bf16 kernel path's loss or gradients are outside the limits")
+    del params, grads, pgrads, fgrads
+    torch.cuda.empty_cache()
+
+
+def rounding_readings(cfg, batch_n, seq, seed, expected, tag, shares):
+    """11d, zamba2: how near its gradients come to their limit, read
+    against their own f32 rounding. The kernel path against the plain path
+    again at ``seed + 1`` (held as the first seed is), and the plain path
+    against itself on the batch doubled (each row twice: the same loss and
+    gradients, the f32 sums over tokens taken in another order; printed,
+    not held), for the leaf nearest its limit at ``seed`` and the worst
+    leaf of each reading."""
+    from repro_torch.models.model import build_model
+
+    leaf = max(shares, key=shares.get)
+    again = kernel_vs_plain_step(cfg, train_batch(cfg, batch_n, seq, seed + 1), seed + 1,
+                                 expected, "11d", f"{tag}, seed {seed + 1}")
+    model = build_model(cfg, use_kernels=False)
+    params = model.init(seed)
+    batch = train_batch(cfg, batch_n, seq, seed)
+    loss, _, grads = loss_and_grads(model, params, batch)
+    dloss, _, dgrads = loss_and_grads(model, params, {k: torch.cat([v, v]) for k, v in batch.items()})
+    floor = grad_shares(dgrads, grads)
+    fworst = max(floor, key=floor.get)
+    aworst = max(again, key=again.get)
+    print(f"[11d] {cfg.arch_id} rounding readings, as shares of the 1e-4 limit: {leaf} kernel "
+          f"against plain {shares[leaf]:.3f} at seed {seed}, {again[leaf]:.3f} at seed {seed + 1} "
+          f"(worst there {aworst} {again[aworst]:.3f}); the plain path against itself on the batch "
+          f"doubled (loss relative {abs(dloss.item() - loss.item()) / abs(loss.item()):.3e}): "
+          f"{leaf} {floor[leaf]:.3f}, worst {fworst} {floor[fworst]:.3f}")
+    del params, grads, dgrads
+    torch.cuda.empty_cache()
+
+
+def flash_autograd_cases(failures, train_shape) -> int:
+    """11c: ``FlashAttention`` (the kernel's forward, the plain version's
+    gradient) against autograd through the plain version. First the bf16
+    kernel at 11a's shape ``train_shape`` (batch, q heads, kv heads, S, d;
+    causal), the body and the count of kv tiles that carry every launch of
+    11a; then wiring cases at phase 2's shapes in f32 and bf16: causal,
+    non-causal and window 256 (where it masks); GQA group 1 and 4; fewer
+    queries than keys. The output per row as phase 2 holds it; dq, dk and dv
+    in f32 within 1e-4 of the largest value, in bf16 within phase 2's per-row
+    limits. Each case launches K2 once and recomputes the plain version
+    once."""
+    from repro_torch.kernels import _build, ops, ref
+
+    worst: dict[str, float] = {}  # the largest share of its limit, per dtype and tensor
+    n = 0
+    b_, qh, kvh, s, d = train_shape
+    wiring = [((2, 8, 2, 200, 200, 64), [(True, None), (False, None)]),
+              ((1, 4, 4, 77, 77, 128), [(True, None)]),
+              ((1, 32, 8, 65, 250, 64), [(True, None), (False, None)]),
+              ((1, 12, 12, 9, 1500, 64), [(False, None)]),
+              ((1, 32, 32, 1024, 1024, 64), [(True, 256)])]
+    cases = [(torch.bfloat16, (b_, qh, kvh, s, s, d), True, None)] + [
+        (dtype, shape, causal, window) for dtype in (torch.float32, torch.bfloat16)
+        for shape, modes in wiring for causal, window in modes]
+    for dtype, (b_, qh, kvh, sq, skv, d), causal, window in cases:
+        tol = TOL["flash_attention"][dtype]
+        q = rand((b_, qh, sq, d), dtype, 2)
+        k, v = rand((b_, kvh, skv, d), dtype, 3), rand((b_, kvh, skv, d), dtype, 4)
+        w = rand((b_, qh, sq, d), torch.float32, 5)
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        pins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        _build.reset_counters()
+        out = ops.flash_attention(*ins, causal=causal, window=window)
+        (out.float() * w).sum().backward()
+        want = ref.attention_ref(*pins, causal=causal, window=window)
+        (want.float() * w).sum().backward()
+        name = (f"{dtype} {(b_, qh, kvh, sq, skv, d)} causal={causal} "
+                f"window={window}").replace("torch.", "")
+        counts = (_build.launches["flash_attention"], _build.backward["flash_attention"],
+                  sum(_build.plain.values()))
+        if counts != (1, 1, 0):
+            failures.append(f"{name}: launches, backward, plain {counts}")
+        pairs = [("out", out.detach(), want.detach())] + [
+            (g, t.grad, pt.grad) for g, t, pt in zip(("dq", "dk", "dv"), ins, pins)]
+        for what, got, ref_ in pairs:
+            diff = (got.float() - ref_.float()).abs()
+            if what != "out" and dtype == torch.float32:
+                allowed = 1e-4 * ref_.abs().max()
+            else:
+                lim = row_limits(ref_, dtype, tol)
+                allowed = lim + lim * ref_.float().abs()
+            share = (diff / allowed).nan_to_num(nan=0.0, posinf=float("inf")).max().item()
+            key = f"{'11a shape ' if n == 0 else ''}{str(dtype).replace('torch.', '')} {what}"
+            worst[key] = max(worst.get(key, 0.0), share)
+            if share > 1 or got.dtype != dtype or not torch.isfinite(got).all():
+                failures.append(f"{name} {what}: {diff.max().item():.3e}, {share:.2f} "
+                                f"of its limit, dtype {got.dtype}")
+        n += 1
+        del ins, pins, out, want, pairs
+    _build.reset_counters()
+    print(f"[11c] FlashAttention against autograd through the plain version: {n} cases, "
+          f"{len(failures)} failures (gradients: f32 1e-4 of the largest value, bf16 phase 2's "
+          f"per-row limits; outputs as phase 2); the largest share of a limit: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in sorted(worst.items())))
+    return n
+
+
+def held_flash_row(shape, failures) -> None:
+    """11c: the bf16 kernel at 11a's ``shape`` (batch, q heads, kv heads, S,
+    d; causal) on the inputs :func:`flash_row` times for the kernels line,
+    held per row against the plain version as phase 2 holds it."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    bq, qh, kvh, s, d = shape
+    q, k, v = rand((bq, qh, s, d), torch.bfloat16, 5), rand((bq, kvh, s, d), torch.bfloat16, 6), rand((bq, kvh, s, d), torch.bfloat16, 7)
+    worst = {}
+    compare(f"flash_attention bf16 q({bq},{qh},{s},{d}) kv({bq},{kvh},{s},{d}) causal",
+            lambda: flash_attention(q, k, v, causal=True), ref.attention_ref(q, k, v, causal=True),
+            failures, worst, tol=TOL["flash_attention"][torch.bfloat16], per_row=True)
+    err, at, share = worst["flash_attention bf16"]
+    print(f"[11c] flash_attention bf16 q({bq},{qh},{s},{d}) kv({bq},{kvh},{s},{d}) causal, the "
+          f"kernels line's inputs, against the plain version: max_abs_err {err:.4e} at |want| "
+          f"{at:.4f}, {share:.3f} of its per-row limit; two calls equal")
+
+
+def train_profile(step, params, state, batch, wall_ms, card_str):
+    """One training step under ``torch.profiler``: kernels, device busy time
+    and idle share against ``wall_ms``; K2's forward and the plain attention
+    backward (the kernels under its profiler range) as shares of the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import BACKWARD_RANGE
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(params, state, batch)
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False) and e.name != BACKWARD_RANGE]
+    if not dev:
+        raise PhaseError("torch.profiler recorded no device activity in a training step")
+    copies = sum(1 for e in dev if e.name.startswith(("Memcpy", "Memset")))
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    k2 = sum(e.time_range.elapsed_us() for e in dev if "flash_tc_kernel" in e.name
+             or "flash_kernel" in e.name) / 1e3
+    k2_n = sum(1 for e in dev if "flash_tc_kernel" in e.name or "flash_kernel" in e.name)
+    ranges = [e for e in events if e.name == BACKWARD_RANGE and e.device_type == DeviceType.CPU]
+    bwd = sum(e.device_time_total for e in ranges) / 1e3
+    print(f"[11f] profiled step: {len(dev) - copies} kernels and {copies} copies/sets, "
+          f"{busy:.3f} ms of device time against {wall_ms:.3f} ms of unprofiled wall: idle share "
+          f"{1 - busy / wall_ms:.3f}; K2 forward {k2_n} launches, {k2:.3f} ms ({k2 / wall_ms:.4f} of "
+          f"the step); the plain attention backward in {len(ranges)} ranges, {bwd:.3f} ms of "
+          f"kernels ({bwd / wall_ms:.4f} of the step){'' if bwd > 0 else ' (not measured: the profiler gave the ranges no device time)'} ({card_str})")
+    print(f"[11f] heaviest kernels of the step (share of kernel time): {heaviest(dev)}")
+    return bwd
+
+
+def train_phase(args, card_str):
+    """11a-f: llama3.2-1b takes ``TRAIN_STEPS`` AdamW steps at full width and
+    depth on the card with K2 carrying attention's forward; the kernel path
+    against the plain path; FlashAttention alone; the other families; a
+    checkpoint round trip; times. Returns the kernels-line entry of K2 at the
+    training shape."""
+    from repro_torch.checkpoint.ckpt import restore, save
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.train.loop import TrainConfig, make_optimizer, make_train_step, to_device
+
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    L = cfg.n_layers
+    tc = TrainConfig(peak_lr=1e-3, warmup_steps=2)
+
+    # 11a. the main path: TRAIN_STEPS steps through make_train_step
+    model = build_model(cfg)
+    params = model.init(args.seed)
+    opt = make_optimizer(tc)
+    state = opt.init(params)
+    step = make_train_step(model, opt, remat=True)
+    data = TokenStream(vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=args.seed)
+    batches = [to_device(next(data), model.device) for _ in range(TRAIN_STEPS + TRAIN_TIMED + 1)]
+    n_params = sum(p.numel() for p in params.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # parameters, optimizer state, batches, earlier phases
+    ops.reset_counters()
+    walls, losses = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, _, met = step(params, state, batches[i])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+        losses.append(met["loss"].item())
+    counts = {"launches": dict(ops.launches), "backward": dict(ops.backward),
+              "plain": dict(ops.plain)}
+    peak = torch.cuda.max_memory_allocated()
+    expected = {"launches": {"matmul": 0, "flash_attention": TRAIN_STEPS * 2 * L,
+                             "decode_attention": 0},
+                "backward": {"matmul": 0, "flash_attention": TRAIN_STEPS * L,
+                             "decode_attention": 0},
+                "plain": {"matmul": 0, "flash_attention": 0, "decode_attention": 0}}
+    print(json.dumps({"train_counters": counts}))
+    print(f"[11a] {TRAIN_ARCH} full width and depth ({L} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab {cfg.vocab}, tied; "
+          f"{n_params / 1e9:.4f} B params, {cfg.dtype}, f32 master/mu/nu), remat on, {TRAIN_STEPS} "
+          f"steps at batch {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+          + " ".join(f"{x:.4f}" for x in losses))
+    if counts != expected:
+        raise PhaseError(f"training launches {counts}; expected {expected}")
+    first, last5 = losses[0], float(np.mean(losses[-5:]))
+    if not all(np.isfinite(losses)) or not last5 < first:
+        raise PhaseError(f"training loss not finite or not falling: first {first}, "
+                         f"mean of the last 5 {last5}")
+    print(f"[11a] launches exactly 2 x {L} K2 a step (forward and remat recompute), {L} plain "
+          f"backward recomputations a step, no plain call, no K1 or K3; loss finite, first "
+          f"{first:.4f}, mean of the last 5 {last5:.4f}")
+
+    # 11f. times (the main path's walls; then instrumented steps and a profile)
+    wall = float(np.mean(walls[2:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    model_flops = 6 * n_params * tokens
+    attn_flops = 6 * TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ**2 * cfg.head_dim * L  # causal: half of 12
+    # the gradient read twice (the global-norm clip needs every gradient
+    # before any update), the parameter written, master/mu/nu read and written
+    opt_bytes = sum(p.numel() * (3 * p.element_size() + 3 * 2 * 4) for p in params.parameters())
+    parts = []
+    for i in range(TRAIN_TIMED):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        params.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss, _ = model.loss(params, batches[TRAIN_STEPS + i], remat=True)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.update({n: p.grad for n, p in params.named_parameters()}, state, params)
+        ev[3].record()
+        torch.cuda.synchronize()
+        parts.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
+    parts = np.asarray(parts)
+    print(f"[11f] step wall (host clock around torch.cuda.synchronize), steps 3-{TRAIN_STEPS}: "
+          f"{' '.join(f'{w:.2f}' for w in walls[2:])} ms; mean {wall:.3f} ms, min "
+          f"{min(walls[2:]):.3f}, max {max(walls[2:]):.3f} (steps 1-2: {walls[0]:.1f}, "
+          f"{walls[1]:.1f} ms) ({card_str})")
+    print(f"[11f] CUDA events, {TRAIN_TIMED} instrumented steps: forward "
+          f"{' '.join(f'{x:.3f}' for x in parts[:, 0])} ms, backward (with the remat "
+          f"recompute) {' '.join(f'{x:.3f}' for x in parts[:, 1])} ms, optimizer "
+          f"{' '.join(f'{x:.3f}' for x in parts[:, 2])} ms ({card_str})")
+    print(f"[11f] {tokens / (wall / 1e3):.1f} tokens/s; MFU {(model_flops + attn_flops) / (wall / 1e3) / PEAK_FLOPS[torch.bfloat16]:.4f} "
+          f"= (6 N T + 6 B H S^2 d L) / step time / 989 TFLOP/s, with N = {n_params} params, "
+          f"T = {tokens} tokens: 6 N T = {model_flops / 1e12:.3f} TFLOP, causal attention "
+          f"(forward and backward, half the S^2 pairs) {attn_flops / 1e12:.3f} TFLOP; the remat "
+          f"recompute is not counted ({card_str})")
+    print(f"[11f] optimizer byte bound: {opt_bytes / 1e9:.2f} GB (the gradient read twice in "
+          f"bf16, once for the global-norm clip and once for the update; the parameter written "
+          f"once in bf16; master/mu/nu read and written in f32) / 3.35 TB/s = "
+          f"{opt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms, against {parts[:, 2].mean():.3f} ms "
+          f"measured; max_memory_allocated over the {TRAIN_STEPS} steps {peak / 1e9:.3f} GB "
+          f"({peak / 2**30:.3f} GiB), {held / 1e9:.3f} GB of it allocated before the first step "
+          f"(parameters, optimizer state, batches, and what earlier phases hold) ({card_str})")
+    train_profile(step, params, state, batches[-1], wall, card_str)
+    del model, params, state, opt, batches, step
+    torch.cuda.empty_cache()
+    print(f"[11a] took {time.perf_counter() - t0:.1f} s")
+
+    # 11b. kernel path against plain path, f32, full width, PLAIN_LAYERS layers
+    cfg32 = dataclasses.replace(cfg, n_layers=PLAIN_LAYERS, dtype="float32")
+    kernel_vs_plain_step(
+        cfg32, train_batch(cfg32, PLAIN_BATCH, PLAIN_SEQ, args.seed), args.seed,
+        {"launches": {"matmul": 0, "flash_attention": 2 * PLAIN_LAYERS, "decode_attention": 0},
+         "backward": {"matmul": 0, "flash_attention": PLAIN_LAYERS, "decode_attention": 0},
+         "plain": {"matmul": 0, "flash_attention": 0, "decode_attention": 0}},
+        "11b", f"{TRAIN_ARCH} full width, {PLAIN_LAYERS} layers, batch {PLAIN_BATCH} x {PLAIN_SEQ}")
+    cfg16 = dataclasses.replace(cfg, n_layers=BF16_TRAIN_LAYERS)
+    bf16_train_step(cfg16, train_batch(cfg16, TRAIN_BATCH, TRAIN_SEQ, args.seed), args.seed,
+                    f"{TRAIN_ARCH} full width, {BF16_TRAIN_LAYERS} layers, batch {TRAIN_BATCH} x "
+                    f"{TRAIN_SEQ}")
+
+    # 11c. FlashAttention alone: under autograd, then the kernels line's inputs
+    shape = (TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads, TRAIN_SEQ, cfg.head_dim)
+    failures: list[str] = []
+    flash_autograd_cases(failures, shape)
+    held_flash_row(shape, failures)
+    for f in failures:
+        print(f"    FAIL {f}")
+    if failures:
+        raise PhaseError(f"{len(failures)} FlashAttention checks outside the limits")
+
+    # 11d. the other families
+    t1 = time.perf_counter()
+    for arch, cut in TRAIN_FAMILIES.items():
+        cut = dict(cut)
+        batch_n, seq = cut.pop("batch"), cut.pop("seq")
+        c = dataclasses.replace(get_config(arch), dtype="float32", **cut)
+        batch = train_batch(c, batch_n, seq, args.seed)
+        tag = f"{arch} full width, " + ", ".join(f"{k} {v}" for k, v in cut.items()) + \
+            f", batch {batch_n} x {seq}"
+        if c.family == "xlstm":
+            xlstm_train_card_vs_cpu(c, batch, args.seed, tag)
+            continue
+        if c.family == "encdec":  # K2 once an encoder layer, twice a decoder layer (self, cross)
+            bwd = c.n_encoder_layers + 2 * c.n_layers
+            fwd = 2 * bwd  # and again in each layer's recomputation
+        elif c.family == "hybrid":  # the shared block is not recomputed
+            fwd = bwd = c.n_layers // c.hybrid_attn_every
+        else:
+            fwd, bwd = 2 * c.n_layers, c.n_layers
+        expected = {"launches": {"matmul": 0, "flash_attention": fwd, "decode_attention": 0},
+                    "backward": {"matmul": 0, "flash_attention": bwd, "decode_attention": 0},
+                    "plain": {"matmul": 0, "flash_attention": 0, "decode_attention": 0}}
+        shares = kernel_vs_plain_step(c, batch, args.seed, expected, "11d", tag)
+        if c.family == "hybrid":
+            rounding_readings(c, batch_n, seq, args.seed, expected, tag, shares)
+    print(f"[11d] took {time.perf_counter() - t1:.1f} s")
+
+    # 11e. checkpoint round trip
+    checkpoint_round_trip(cfg, args.seed, save, restore)
+
+    # K2 at the training shape, for the kernels line (launches: 11a's; the
+    # same inputs held per row in 11c)
+    rows = report_rows(
+        [("flash_attention", flash_row(shape))],
+        {"flash_attention": counts["launches"]["flash_attention"]}, card_str, "11f",
+        suffix=f"[train {TRAIN_ARCH}]")
+    print(f"[11] phase 11 took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def xlstm_train_card_vs_cpu(cfg, batch, seed, tag):
+    """11d for xlstm: no kernel on its path, so the card's f32 loss and
+    gradients are held against the CPU's on the same weights and batch."""
+    from repro_torch.kernels import _build
+    from repro_torch.models.model import build_model
+
+    t0 = time.perf_counter()
+    card_m = build_model(cfg)
+    card_p = card_m.init(seed)
+    cpu_m, cpu_p = f32_copy(cfg, card_p, device="cpu")
+    _build.reset_counters()
+    loss, _, grads = loss_and_grads(card_m, card_p, batch)
+    if sum(_build.launches.values()) + sum(_build.plain.values()) + sum(_build.backward.values()):
+        raise PhaseError(f"{XLSTM}: a kernel or plain version ran in training")
+    closs, _, cgrads = loss_and_grads(cpu_m, cpu_p, {k: v.cpu() for k, v in batch.items()})
+    hold_grads(f"{tag} f32, card against CPU (no kernel; {time.perf_counter() - t0:.1f} s)",
+               grads, cgrads, loss.cpu(), closs, "11d")
+    del card_p, cpu_p, grads, cgrads
+    torch.cuda.empty_cache()
+
+
+def checkpoint_round_trip(cfg, seed, save, restore):
+    """11e: train CKPT_LAYERS layers of ``cfg`` (bf16, full width) 3 steps,
+    save, take a 4th step; restore into fresh modules and state and take the
+    4th step again: the loss and every parameter bitwise equal."""
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models.model import build_model
+    from repro_torch.train.loop import TrainConfig, make_optimizer, make_train_step, to_device
+
+    t0 = time.perf_counter()
+    c = dataclasses.replace(cfg, n_layers=CKPT_LAYERS)
+    model = build_model(c)
+    opt = make_optimizer(TrainConfig(peak_lr=1e-3, warmup_steps=2))
+    step = make_train_step(model, opt)
+    data = TokenStream(vocab=c.vocab, batch=CKPT_BATCH, seq_len=CKPT_SEQ, seed=seed)
+    batches = [to_device(next(data), model.device) for _ in range(4)]
+    params = model.init(seed)
+    state = opt.init(params)
+    for b in batches[:3]:
+        step(params, state, b)
+    path = ROOT / "build" / "chip_smoke_ckpt.npz"
+    try:
+        save(path, {"params": params, "opt": state})
+        size = path.stat().st_size
+        _, _, met = step(params, state, batches[3])
+        fresh = model.init(seed + 1)
+        fstate = opt.init(fresh)
+        restore(path, {"params": fresh, "opt": fstate})
+    finally:
+        path.unlink(missing_ok=True)
+    _, _, fmet = step(fresh, fstate, batches[3])
+    same = torch.equal(met["loss"], fmet["loss"]) and all(
+        torch.equal(a, b) for a, b in zip(params.parameters(), fresh.parameters())) and all(
+        torch.equal(state.master[n], fstate.master[n]) for n in state.master)
+    print(f"[11e] checkpoint round trip, {TRAIN_ARCH} full width, {CKPT_LAYERS} layers, bf16, "
+          f"batch {CKPT_BATCH} x {CKPT_SEQ}: saved after 3 steps ({size / 1e9:.3f} GB .npz), "
+          f"restored into fresh modules and state; step 4 loss {fmet['loss'].item():.6f} against "
+          f"{met['loss'].item():.6f} uninterrupted; loss, parameters and master bitwise equal: "
+          f"{same} ({time.perf_counter() - t0:.1f} s)")
+    if not same:
+        raise PhaseError("checkpoint round trip: step 4 differs from the uninterrupted run")
+    del params, fresh, state, fstate
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # seed 2: the gated arm's first cold replicas fail the gate, so a run shows
@@ -2052,6 +2637,9 @@ def main() -> int:
     kernels += zamba_phase(args, card_str)
     xlstm_phase(args, card_str)
     print(f"[10] phase 10 took {time.perf_counter() - t0:.1f} s")
+
+    # 11. training
+    kernels += train_phase(args, card_str)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_str)

@@ -14,8 +14,11 @@ package on a machine with no ``nvcc``.
 
 ``launches`` counts, per kernel, the launches a wrapper has made; ``plain``
 counts the calls the dispatcher (:mod:`repro_torch.kernels.ops`) sent to a
-kernel's plain PyTorch version. A run that claims to have gone through the
-kernels resets both with :func:`reset_counters` and reads them afterwards.
+kernel's plain PyTorch version; ``backward`` counts the plain-version
+recomputations that a kernel's autograd backward made (the flash-attention
+kernel has a forward only: its gradient is the plain version's, taken by
+autograd). A run that claims to have gone through the kernels resets them
+with :func:`reset_counters` and reads them afterwards.
 A CUDA graph counts what it recorded at each replay (:func:`recording`,
 :func:`replayed`): its capture runs nothing, so it counts nothing.
 """
@@ -52,13 +55,14 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 plain: dict[str, int] = {name: 0 for name in KERNELS}
+backward: dict[str, int] = {name: 0 for name in KERNELS}
 
 _libs: dict[str, ctypes.CDLL] = {}
 last_build_s: float | None = None  # wall time of the last build, None if loaded
 
 
 def reset_counters() -> None:
-    for d in (launches, plain):
+    for d in (launches, plain, backward):
         for name in d:
             d[name] = 0
 

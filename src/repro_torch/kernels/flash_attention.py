@@ -17,6 +17,13 @@ calls need ``q_seq <= kv_seq``. With ``window`` a key is kept only where
 ``q_pos - k_pos < window`` (a sliding window, zamba2's shared attention), with
 or without the causal mask, as the plain version keeps it; the kernel then
 reads only the kv tiles of each q tile's band.
+
+:class:`FlashAttention` puts the kernel under autograd for training: its
+forward launches the kernel and saves q, k and v; its backward recomputes the
+plain version on them and returns the plain version's gradient, which is what
+``jax.grad`` takes of ``repro``'s attention oracle (the GQA group sum comes
+from the grouped einsum). The kernel's own output carries no ``grad_fn``, so
+without the Function a gradient into q, k and v would be lost.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ import torch
 from . import _build
 from .ref import attention_ref as plain
 
-__all__ = ["flash_attention", "plain"]
+__all__ = ["FlashAttention", "flash_attention", "plain"]
 
 
 def flash_attention(
@@ -72,3 +79,28 @@ def flash_attention(
         )
     _build.check("flash_attention", err)
     return out
+
+
+# the profiler range of the backward's plain recomputation and its gradient
+BACKWARD_RANGE = "flash_attention.backward (plain)"
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel's forward, the plain version's backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: Optional[float], window: Optional[int]):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, sm_scale=sm_scale, window=window)
+        return flash_attention(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, dout):
+        needs = ctx.needs_input_grad[:3]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+        _build.backward["flash_attention"] += 1
+        with torch.enable_grad(), torch.profiler.record_function(BACKWARD_RANGE):
+            out = plain(*inputs, **ctx.kw)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, dout))
+        return (*(next(grads) if n else None for n in needs), None, None, None)

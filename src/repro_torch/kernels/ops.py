@@ -8,7 +8,16 @@ that fails to build or launch raises; nothing falls back.
 
 Unlike ``repro.kernels.ops`` nothing is padded: the kernels mask ragged
 edges themselves. ``launches`` and ``plain`` count kernel launches and
-plain-version calls per kernel (see :mod:`repro_torch.kernels._build`).
+plain-version calls per kernel, ``backward`` the plain recomputations of a
+kernel's backward (see :mod:`repro_torch.kernels._build`).
+
+Under autograd (grad mode on and an input that requires grad) a CUDA call of
+flash attention goes through :class:`~repro_torch.kernels.flash_attention.FlashAttention`:
+the kernel's forward, the plain version's gradient. Without a gradient the
+kernel is called as it is, so serving and CUDA-graph capture launch the same.
+Nothing trains through the matmul and decode-attention kernels; asked for a
+gradient on the card, they raise rather than return an output that autograd
+would treat as a constant.
 """
 from __future__ import annotations
 
@@ -18,13 +27,28 @@ import torch
 
 from . import _build, ref
 from . import decode_attention as _k3
+from . import flash_attention as _k2
 from .decode_attention import decode_attention as _decode_attention
-from .flash_attention import flash_attention as _flash_attention
 from .matmul_probe import matmul as _matmul
 
 launches = _build.launches
 plain = _build.plain
+backward = _build.backward
 reset_counters = _build.reset_counters
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _no_grad_kernel(name: str, *tensors: torch.Tensor) -> None:
+    if _wants_grad(*tensors):
+        raise RuntimeError(f"the {name} kernel has no backward: call it under torch.no_grad() "
+                           f"or with inputs that do not require grad")
 
 
 def prepare_capture(device: torch.device) -> None:
@@ -37,7 +61,8 @@ def prepare_capture(device: torch.device) -> None:
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
-    if use_kernel and a.is_cuda:
+    if use_kernel and _on_card(a):
+        _no_grad_kernel("matmul", a, b)
         return _matmul(a, b)
     plain["matmul"] += 1
     return ref.matmul_ref(a, b)
@@ -53,8 +78,10 @@ def flash_attention(
     window: Optional[int] = None,
     use_kernel: bool = True,
 ) -> torch.Tensor:
-    if use_kernel and q.is_cuda:
-        return _flash_attention(q, k, v, causal=causal, sm_scale=sm_scale, window=window)
+    if use_kernel and _on_card(q):
+        if _wants_grad(q, k, v):
+            return _k2.FlashAttention.apply(q, k, v, causal, sm_scale, window)
+        return _k2.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale, window=window)
     plain["flash_attention"] += 1
     return ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale, window=window)
 
@@ -68,7 +95,8 @@ def decode_attention(
     sm_scale: Optional[float] = None,
     use_kernel: bool = True,
 ) -> torch.Tensor:
-    if use_kernel and q.is_cuda:
+    if use_kernel and _on_card(q):
+        _no_grad_kernel("decode_attention", q, k_cache, v_cache)
         return _decode_attention(q, k_cache, v_cache, lengths, sm_scale=sm_scale)
     plain["decode_attention"] += 1
     return ref.decode_attention_ref(q, k_cache, v_cache, lengths, sm_scale=sm_scale)

@@ -24,6 +24,13 @@ stacked over its blocks, or an sLSTM block's dict.
 A tree of another family than the model's (an MoE tree for a dense model,
 an encoder-decoder tree for a transformer, an xLSTM tree for a hybrid, or
 the other way round) is refused. Nothing here imports ``jax`` or ``repro``.
+
+:func:`reference_ndim` gives each port parameter the rank of its leaf in
+``repro``'s tree: one more than the port tensor's where ``repro`` stacks the
+leaf. AdamW decays a leaf by that rank (``repro/optim/adamw.py`` decays where
+``master.ndim > 1``), so a per-layer vector such as ``layers.0.ln1`` is
+decayed, as its stacked ``(L, d)`` leaf is in ``repro``, and ``final_norm``
+is not.
 """
 from __future__ import annotations
 
@@ -138,6 +145,29 @@ def _put_mlp(dst, mlp: dict, i: int, name: str) -> None:
         if dst.shared is not None:
             for f in _SWIGLU_FIELDS:
                 _put(getattr(dst.shared, f), mlp["shared"][f][i], f"{name}.shared.{f}")
+
+
+def _stacked_prefixes(model: Union[Transformer, EncDec, Zamba2, XLSTM]) -> tuple[str, ...]:
+    """The name prefixes of the port parameters whose ``repro`` leaves are
+    stacked: over the layers (``layers``, ``encoder``, ``decoder``,
+    ``mamba``), or over an mLSTM group's blocks (``groups.{gi}``, even a
+    group of one block). Zamba2's shared block and an sLSTM block are single."""
+    if isinstance(model, EncDec):
+        return ("encoder.", "decoder.")
+    if isinstance(model, Zamba2):
+        return ("mamba.",)
+    if isinstance(model, XLSTM):
+        return tuple(f"groups.{gi}." for gi, g in enumerate(model.groups)
+                     if isinstance(g, nn.ModuleList))
+    if isinstance(model, Transformer):
+        return ("layers.",)
+    raise TypeError(f"not a model of the port: {type(model).__name__}")
+
+
+def reference_ndim(model: Union[Transformer, EncDec, Zamba2, XLSTM]) -> dict[str, int]:
+    """Each parameter's name -> the rank of its leaf in ``repro``'s tree."""
+    stacked = _stacked_prefixes(model)
+    return {name: p.dim() + name.startswith(stacked) for name, p in model.named_parameters()}
 
 
 def _put_fields(dst: nn.Module, src: dict, name: str, i: Optional[int] = None) -> None:

@@ -13,6 +13,12 @@ decode-attention kernel twice a layer: over the decoder's own cache, which
 the step writes, and over the encoder's cross K/V, which prefill stores and
 decode only reads. Layers are per-layer modules, as in
 :mod:`repro_torch.models.transformer`, and the caches are written in place.
+
+Training (:func:`loss_fn`) runs the encoder and the teacher-forced decoder
+(``decode_train``), each layer recomputed in the backward with ``remat`` as
+``repro`` wraps both scan bodies in ``jax.checkpoint``; the decoder's
+gradient reaches the encoder's output through each layer's cross K/V, the
+flash-attention kernel's non-causal ``k`` and ``v``.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from .attention import Attention, decode_attention_step, prefill_attention
-from .layers import SwiGLU, normal_init, rms_norm, unembed
+from .layers import SwiGLU, cross_entropy, normal_init, remat as _remat, rms_norm, unembed
 
 
 def _norm(cfg: ArchConfig, device: torch.device) -> nn.Parameter:
@@ -106,7 +112,7 @@ def _positions(B: int, S: int, device: torch.device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
-def encode(cfg: ArchConfig, params: EncDec, frames: torch.Tensor, *,
+def encode(cfg: ArchConfig, params: EncDec, frames: torch.Tensor, *, remat: bool = True,
            use_kernel: bool = True) -> torch.Tensor:
     """frames: (B, F, d_model), the stub frontend's output, cast to the
     model's dtype. Returns the normed encoder output (B, F, d_model)."""
@@ -114,12 +120,17 @@ def encode(cfg: ArchConfig, params: EncDec, frames: torch.Tensor, *,
     x = frames.to(cfg.torch_dtype)
     positions = _positions(B, F, x.device)
     for p in params.encoder:
-        h, _ = prefill_attention(
-            p.attn, rms_norm(x, p.ln1, cfg.norm_eps), positions,
-            rope_theta=cfg.rope_theta, eps=cfg.norm_eps, causal=False, use_kernel=use_kernel,
-        )
-        x = x + h
-        x = x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
+
+        def body(x, p=p):
+            h, _ = prefill_attention(
+                p.attn, rms_norm(x, p.ln1, cfg.norm_eps), positions,
+                rope_theta=cfg.rope_theta, eps=cfg.norm_eps, causal=False,
+                use_kernel=use_kernel,
+            )
+            x = x + h
+            return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
+
+        x = _remat(body, x) if remat else body(x)
     return rms_norm(x, params.enc_norm, cfg.norm_eps)
 
 
@@ -132,36 +143,53 @@ def _cross_kv(p_attn: Attention, enc_out: torch.Tensor):
 
 
 def decode_train(cfg: ArchConfig, params: EncDec, tokens: torch.Tensor,
-                 enc_out: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
+                 enc_out: torch.Tensor, *, remat: bool = True,
+                 use_kernel: bool = True) -> torch.Tensor:
     """The decoder over a whole token sequence (B, S), teacher-forced.
     Returns logits (B, S, V)."""
     B, S = tokens.shape
     x = params.embed[tokens.long()]
     positions = _positions(B, S, x.device)
     for p in params.decoder:
-        h, _ = prefill_attention(
-            p.self_attn, rms_norm(x, p.ln1, cfg.norm_eps), positions,
-            rope_theta=cfg.rope_theta, eps=cfg.norm_eps, causal=True, use_kernel=use_kernel,
-        )
-        x = x + h
-        h, _ = prefill_attention(
-            p.cross_attn, rms_norm(x, p.ln_x, cfg.norm_eps), positions,
-            rope_theta=cfg.rope_theta, eps=cfg.norm_eps, causal=False,
-            cross_kv=_cross_kv(p.cross_attn, enc_out), use_rope=False, use_kernel=use_kernel,
-        )
-        x = x + h
-        x = x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
+
+        def body(x, enc_out, p=p):
+            h, _ = prefill_attention(
+                p.self_attn, rms_norm(x, p.ln1, cfg.norm_eps), positions,
+                rope_theta=cfg.rope_theta, eps=cfg.norm_eps, causal=True,
+                use_kernel=use_kernel,
+            )
+            x = x + h
+            h, _ = prefill_attention(
+                p.cross_attn, rms_norm(x, p.ln_x, cfg.norm_eps), positions,
+                rope_theta=cfg.rope_theta, eps=cfg.norm_eps, causal=False,
+                cross_kv=_cross_kv(p.cross_attn, enc_out), use_rope=False,
+                use_kernel=use_kernel,
+            )
+            x = x + h
+            return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
+
+        x = _remat(body, x, enc_out) if remat else body(x, enc_out)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return unembed(x, params.unembed)
 
 
-def forward(cfg: ArchConfig, params: EncDec, batch, *,
+def forward(cfg: ArchConfig, params: EncDec, batch, *, remat: bool = True,
             use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """batch: {"frames": (B, F, d), "tokens": (B, S)}. Returns (logits (B,
     S, V), aux loss 0 as a 0-dim f32 tensor)."""
-    enc_out = encode(cfg, params, batch["frames"], use_kernel=use_kernel)
-    logits = decode_train(cfg, params, batch["tokens"], enc_out, use_kernel=use_kernel)
+    enc_out = encode(cfg, params, batch["frames"], remat=remat, use_kernel=use_kernel)
+    logits = decode_train(cfg, params, batch["tokens"], enc_out, remat=remat,
+                          use_kernel=use_kernel)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def loss_fn(cfg: ArchConfig, params: EncDec, batch, *, remat: bool = True,
+            use_kernel: bool = True):
+    """batch: {"frames", "tokens", "labels"}. Returns (ce + aux, {"ce",
+    "nll", "aux"}), 0-dim f32 tensors."""
+    logits, aux = forward(cfg, params, batch, remat=remat, use_kernel=use_kernel)
+    ce, nll = cross_entropy(logits, batch["labels"])
+    return ce + aux, {"ce": ce, "nll": nll, "aux": aux}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
@@ -185,7 +213,7 @@ def prefill(cfg: ArchConfig, params: EncDec, frames: torch.Tensor, cache, *,
     cache, in place. The decoder starts empty: ``lengths`` is set to 0, what
     ``repro``'s prefill leaves in a fresh cache (a reused cache may hold an
     earlier request's length). Returns (None, cache)."""
-    enc_out = encode(cfg, params, frames, use_kernel=use_kernel)
+    enc_out = encode(cfg, params, frames, remat=False, use_kernel=use_kernel)
     for i, p in enumerate(params.decoder):
         k, v = _cross_kv(p.cross_attn, enc_out)
         cache["cross_k"][i] = k.transpose(1, 2)

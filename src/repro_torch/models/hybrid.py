@@ -18,6 +18,11 @@ d_conv - 1, conv_dim) the causal conv's last inputs, ``attn_k``/``attn_v``
 (applications, B, K, rows, hd) and ``lengths``. Prefill starts every layer
 from a zero state, as ``repro``'s does (it reads no state from the cache),
 so a reused cache holds nothing of an earlier request that decode reads.
+
+In training (:func:`loss_fn`) ``remat`` recomputes each Mamba2 block in the
+backward and keeps the shared block's activations, as ``repro`` wraps only
+the Mamba scan's body in ``jax.checkpoint``; the shared block's gradient sums
+over its applications.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from .attention import Attention, decode_attention_step, prefill_attention
-from .layers import SwiGLU, normal_init, parameter, rms_norm, unembed
+from .layers import (SwiGLU, cross_entropy, normal_init, parameter, remat as _remat, rms_norm,
+                     unembed)
 from .ssm import softplus, ssd_chunked, ssd_step
 
 
@@ -230,19 +236,33 @@ def _embed(params: Zamba2, tokens: torch.Tensor):
     return params.embed[tokens.long()], positions
 
 
-def forward(cfg: ArchConfig, params: Zamba2, tokens: torch.Tensor, *,
+def forward(cfg: ArchConfig, params: Zamba2, tokens: torch.Tensor, *, remat: bool = True,
             use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Full forward pass over ``tokens`` (B, S). Returns (logits (B, S, V),
-    aux loss 0 as a 0-dim f32 tensor)."""
+    aux loss 0 as a 0-dim f32 tensor). ``remat`` recomputes each Mamba2
+    block in the backward."""
     x, positions = _embed(params, tokens)
     for _, layers, attn in _groups(cfg):
         for li in layers:
-            x, _ = mamba_block(cfg, params.mamba[li], x)
+
+            def body(x, p=params.mamba[li]):
+                return mamba_block(cfg, p, x)[0]
+
+            x = _remat(body, x) if remat else body(x)
         if attn:
             x, _ = _shared_attn_prefill(cfg, params.shared_attn, x, positions, use_kernel)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = unembed(x, params.unembed)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def loss_fn(cfg: ArchConfig, params: Zamba2, batch, *, remat: bool = True,
+            use_kernel: bool = True):
+    """batch: {"tokens", "labels"} (B, S). Returns (ce + aux, {"ce", "nll",
+    "aux"}), 0-dim f32 tensors."""
+    logits, aux = forward(cfg, params, batch["tokens"], remat=remat, use_kernel=use_kernel)
+    ce, nll = cross_entropy(logits, batch["labels"])
+    return ce + aux, {"ce": ce, "nll": nll, "aux": aux}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -16,7 +17,8 @@ def normal_init(shape, scale: float, dtype: torch.dtype, generator: torch.Genera
 
 
 def parameter(shape, dtype: torch.dtype, device: torch.device) -> nn.Parameter:
-    """An uninitialised, frozen weight (the port only serves)."""
+    """An uninitialised weight, built frozen (``requires_grad=False``):
+    serving records no autograd graph; the trainer turns gradients on."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
 
 
@@ -69,6 +71,29 @@ class SwiGLU(nn.Module):
         return swiglu(x, self.w_gate, self.w_up, self.w_down)
 
 
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward instead of
+    kept (``jax.checkpoint``'s counterpart): non-reentrant
+    ``torch.utils.checkpoint``. Without grad mode nothing is kept anyway, and
+    ``fn`` simply runs. Nothing in the models draws random numbers, so the
+    RNG state is not stashed."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
 def unembed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Logits projection."""
     return x @ w
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_weight: float = 1e-4):
+    """Token-mean cross entropy with z-loss, in f32; logits (B, S, V), labels
+    (B, S). Returns (ce + z mean, nll mean)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    z = z_weight * (lse**2)
+    return torch.mean(nll + z), torch.mean(nll)

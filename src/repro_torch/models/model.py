@@ -2,6 +2,7 @@
 
     model = build_model(cfg)                       # on the card; device="cpu" for the CPU
     params = model.init(seed)
+    loss, metrics = model.loss(params, batch)               # training
     logits, aux = model.forward(params, batch)              # full forward, aux loss
     cache = model.init_cache(batch_size, max_len)
     logits, cache = model.prefill(params, batch, cache)        # inference prefill
@@ -41,6 +42,13 @@ steps ``< t``, running extra (bucket-padding) steps never changes the first
 
 ``use_kernels=False`` routes attention to the plain versions on the card
 too; that is how a run holds the kernel path against the plain path.
+
+``loss`` and ``forward`` run in the caller's grad mode (the trainer turns the
+parameters' gradients on: they are built frozen); ``remat`` recomputes each
+layer in the backward (``repro``'s defaults: on in ``loss``, off in
+``forward``). The serving surface (``prefill``, ``decode_step``,
+``prefill_jit``, ``decode_tokens``) runs under ``torch.no_grad()``, so a
+model that has trained serves, and is captured, without recording autograd.
 """
 from __future__ import annotations
 
@@ -99,18 +107,27 @@ class Model:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return _FAMILIES[self.cfg.family][1](self.cfg, self.device).init(gen)
 
-    def forward(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+    def loss(self, params, batch, *, remat: bool = True) -> tuple[torch.Tensor, dict]:
+        """(ce + aux, {"ce", "nll", "aux"}), as ``repro``'s ``Model.loss``:
+        batch ``{"tokens", "labels"}`` (encdec: and ``"frames"``)."""
+        return self._impl.loss_fn(self.cfg, params, batch, remat=remat,
+                                  use_kernel=self.use_kernels)
+
+    def forward(self, params, batch, *, remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
         """(logits (B, S, V), aux loss), as ``repro``'s ``Model.forward``."""
         inputs = batch if self._impl is encdec else batch["tokens"]
-        return self._impl.forward(self.cfg, params, inputs, use_kernel=self.use_kernels)
+        return self._impl.forward(self.cfg, params, inputs, remat=remat,
+                                  use_kernel=self.use_kernels)
 
     def init_cache(self, batch_size: int, max_len: int):
         return self._impl.init_cache(self.cfg, batch_size, max_len, device=self.device)
 
+    @torch.no_grad()
     def prefill(self, params, batch, cache):
         return self._impl.prefill(self.cfg, params, batch[self._input], cache,
                                   use_kernel=self.use_kernels)
 
+    @torch.no_grad()
     def decode_step(self, params, cache, tokens):
         return self._impl.decode_step(self.cfg, params, cache, tokens,
                                       use_kernel=self.use_kernels)
@@ -140,6 +157,7 @@ class Model:
         window = self.cfg.sliding_window
         return min(max_len, window) if window is not None else max_len
 
+    @torch.no_grad()
     def prefill_jit(self, params, batch, cache):
         """``prefill``, as one CUDA graph per (B, S, cache_len) on the card;
         for encdec per (B, frames, cache_len), whose graph returns None."""
@@ -157,6 +175,7 @@ class Model:
         key = ("prefill", B, S, rows)
         return self.graphs.run(key, params, inputs, body, cache, static), cache
 
+    @torch.no_grad()
     def decode_tokens(self, params, cache, tokens: torch.Tensor, n_steps: int):
         """Greedy-decode ``n_steps`` tokens from ``tokens`` (B, 1), as one
         CUDA graph per (B, cache_len, n_steps) on the card. Returns ((B,

@@ -13,7 +13,9 @@ KV cache is preallocated and written in place: prefill fills the prompt's
 rows, each decode step one row a sequence, and ``lengths`` advances in place.
 :func:`forward` returns the layers' summed auxiliary loss beside the logits
 (the MoE router's load-balance and z-loss terms; 0 for a dense FFN); prefill
-and decode drop it, as ``repro``'s do.
+and decode drop it, as ``repro``'s do. :func:`loss_fn` adds it to the cross
+entropy, and ``remat`` recomputes each layer in the backward, where
+``repro`` wraps its scan body in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from torch import nn
 from ..configs.base import ArchConfig
 from . import moe
 from .attention import Attention, decode_attention_step, prefill_attention
-from .layers import SwiGLU, normal_init, rms_norm, unembed
+from .layers import SwiGLU, cross_entropy, normal_init, remat as _remat, rms_norm, unembed
 
 
 class Block(nn.Module):
@@ -131,18 +133,33 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 
 def forward(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, *,
-            use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+            remat: bool = True, use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Full forward pass over ``tokens`` (B, S). Returns (logits (B, S, V),
-    the layers' summed aux loss as a 0-dim f32 tensor)."""
+    the layers' summed aux loss as a 0-dim f32 tensor). ``remat``
+    recomputes each layer in the backward."""
     window = cfg.sliding_window
     x = _embed(params, tokens)
     positions = _positions(tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in params.layers:
-        x, _, layer_aux = _layer_prefill(cfg, p, x, positions, window, use_kernel, True)
+
+        def body(x, p=p):
+            y, _, layer_aux = _layer_prefill(cfg, p, x, positions, window, use_kernel, True)
+            return y, layer_aux
+
+        x, layer_aux = _remat(body, x) if remat else body(x)
         aux = aux + layer_aux
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return unembed(x, params.out_proj()), aux
+
+
+def loss_fn(cfg: ArchConfig, params: Transformer, batch, *, remat: bool = True,
+            use_kernel: bool = True):
+    """batch: {"tokens", "labels"} (B, S). Returns (ce + aux, {"ce", "nll",
+    "aux"}), 0-dim f32 tensors."""
+    logits, aux = forward(cfg, params, batch["tokens"], remat=remat, use_kernel=use_kernel)
+    ce, nll = cross_entropy(logits, batch["labels"])
+    return ce + aux, {"ce": ce, "nll": nll, "aux": aux}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,

@@ -23,6 +23,10 @@ the stabilizers) whatever the cache holds: ``repro``'s continues from the
 cache's state, and its serving path always hands it a fresh ``init_cache``,
 while the port's serving path reuses one static cache for every request.
 Decode computes each new state and then copies it into the cache.
+
+In training (:func:`loss_fn`) ``remat`` recomputes each mLSTM block in the
+backward and keeps the sLSTM's activations, as ``repro`` wraps only the
+mLSTM scan's body in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig
-from .layers import normal_init, parameter, rms_norm, unembed
+from .layers import cross_entropy, normal_init, parameter, remat as _remat, rms_norm, unembed
 from .ssm import mlstm_chunked, mlstm_init_state, mlstm_step, slstm_init_state, slstm_scan
 
 EXPAND = 2
@@ -203,9 +207,10 @@ def _chunk(cfg: ArchConfig) -> int:
     return cfg.ssm.chunk if cfg.ssm else 256
 
 
-def _run(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor, cache=None):
+def _run(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor, cache=None, remat=False):
     """The stack over ``tokens`` from a fresh state; with ``cache``, each
-    block's final state is copied into it. Returns the last layer's output."""
+    block's final state is copied into it; ``remat`` recomputes each mLSTM
+    block in the backward. Returns the last layer's output."""
     x = params.embed[tokens.long()]
     for gi, group in enumerate(params.groups):
         if isinstance(group, SLSTMBlock):
@@ -215,7 +220,11 @@ def _run(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor, cache=None):
                     cache[f"g{gi}.{name}"].copy_(t)
             continue
         for j, block in enumerate(group):
-            x, state = mlstm_block(cfg, block, x, chunk=_chunk(cfg))
+
+            def body(x, p=block):
+                return mlstm_block(cfg, p, x, chunk=_chunk(cfg))
+
+            x, state = _remat(body, x) if remat else body(x)
             if cache is not None:
                 for name, t in zip(MLSTM_STATE, state):
                     cache[f"g{gi}.{name}"][j].copy_(t)
@@ -227,14 +236,24 @@ def _run(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor, cache=None):
 # ---------------------------------------------------------------------------
 
 
-def forward(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor, *,
+def forward(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor, *, remat: bool = True,
             use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Full forward pass over ``tokens`` (B, S). Returns (logits (B, S, V),
-    aux loss 0 as a 0-dim f32 tensor). ``use_kernel`` is accepted for the
-    common surface; no kernel is on this path."""
-    x = rms_norm(_run(cfg, params, tokens), params.final_norm, cfg.norm_eps)
+    aux loss 0 as a 0-dim f32 tensor). ``remat`` recomputes each mLSTM block
+    in the backward. ``use_kernel`` is accepted for the common surface; no
+    kernel is on this path."""
+    x = rms_norm(_run(cfg, params, tokens, remat=remat), params.final_norm, cfg.norm_eps)
     logits = unembed(x, params.unembed)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def loss_fn(cfg: ArchConfig, params: XLSTM, batch, *, remat: bool = True,
+            use_kernel: bool = True):
+    """batch: {"tokens", "labels"} (B, S). Returns (ce + aux, {"ce", "nll",
+    "aux"}), 0-dim f32 tensors."""
+    logits, aux = forward(cfg, params, batch["tokens"], remat=remat, use_kernel=use_kernel)
+    ce, nll = cross_entropy(logits, batch["labels"])
+    return ce + aux, {"ce": ce, "nll": nll, "aux": aux}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len=None, *,

@@ -24,6 +24,7 @@ VERBATIM = [
     "sim/platform.py", "sim/workload.py", "sim/metrics.py", "sim/experiment.py",
     "sim/arrivals.py", "sim/workflow_dag.py", "configs/registry.py",
     "fleet/__init__.py", "fleet/policies.py", "fleet/resilience.py", "fleet/router.py",
+    "data/pipeline.py",
 ] + sorted(
     f"configs/{p.name}" for p in (REF / "configs").glob("*.py")
     if p.name not in ("base.py", "registry.py")
@@ -105,7 +106,8 @@ def test_near_copies_differ_from_reference_only_by_their_added_lines(rel):
 def test_scans_cover_every_module_of_the_port():
     scanned = {p.relative_to(PORT).as_posix() for p in _scanned_files() if p.is_relative_to(PORT)}
     new = {"models/encdec.py", "serving/pipeline.py", "models/ssm.py", "models/hybrid.py",
-           "models/xlstm.py"}
+           "models/xlstm.py", "optim/adamw.py", "optim/schedule.py", "train/loop.py",
+           "data/pipeline.py", "checkpoint/ckpt.py", "launch/train.py"}
     assert new <= scanned
     mods = _port_modules()
     assert {"repro_torch." + m[:-3].replace("/", ".") for m in new} <= set(mods)
@@ -120,6 +122,8 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
     from repro_torch.serving.backend import ModelServingBackend
     from repro_torch.serving.engine import MinosServingEngine
     from repro_torch.serving.pipeline import build_asr_llm_pipeline
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.train.loop import TrainConfig, train
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_smoke_config("llama3.2-1b")
@@ -132,6 +136,8 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
         ModelServingBackend(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_asr_llm_pipeline()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(cfg, iter(TokenStream(cfg.vocab, 1, 8)), TrainConfig(), steps=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MinosServingEngine(cfg, MinosPolicy(elysium_threshold=200.0), Pricing.tpu_chip_seconds(4))
     # asking for the CPU is the way to run there
