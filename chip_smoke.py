@@ -138,6 +138,30 @@ Run from the root of a checkout. It imports ``src/repro_torch`` (never
    (``torch.profiler``), peak memory, the optimizer's byte bound, and K2 at
    the training shape beside SDPA.
 
+12. multi-device and launch (M11): (a) ``python -m repro_torch.launch.serve``
+   at its defaults on the card; (b) full-width llama3.2-1b (bf16) on a
+   (1, 1) ("data", "model") NCCL mesh with ``DECODE_ATTN_MODE =
+   "shard_map"`` and the cache placed along its length: the requests of
+   phase 4, 32 greedy steps each, eagerly, with tokens identical to the
+   unsharded eager path, logits within phase 5's bf16 limit, K3's
+   log-sum-exp form launched exactly layers x steps x requests times (K2 once
+   a layer a request, nothing else) and no collective (each is skipped at
+   size 1; the merge's three all-reduces a call are held on gloo groups of
+   2 and 4 ranks by the CPU tests); (c) the port's flash-decode
+   (``models/attention.py``: ``flash_decode_slice``, K3's log-sum-exp form,
+   on each of 4 and 8 slices of phase 2's main decode cache at their global
+   offsets, the new row written by its slice, one slice past the prefix and
+   one straddling it; ``merge_slices`` over the stacked slices) held per
+   row to unsharded K3 and to the plain version in bf16 and f32, each
+   slice's log-sum-exp within 1e-4 of the plain one's, the slices' caches
+   bitwise the written cache; (d) the port's dry-run of
+   llama3.2-1b at its four shapes, and decode_32k with the length-sharded
+   flash-decode, on the 16x16 fake mesh (a child process: host work, no
+   device): per-device FLOPs, HBM bytes, collective bytes by kind and the
+   H100 data-sheet roofline terms; (e) K3 with and without its log-sum-exp
+   beside its bound, and one request's eager decode step unsharded and
+   sharded in turns, then each under ``torch.profiler`` (host time by op).
+
 It exits non-zero, printing no result, if there is no CUDA device or any
 phase fails. Its last two lines are the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -147,7 +171,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
+import os
+import socket
 import subprocess
 import sys
 import time
@@ -893,13 +920,19 @@ def profiled(fn):
     """``fn()`` under ``torch.profiler``: (kernels, copies and sets, summed
     device ms, ms from the first device activity's start to the last one's
     end)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return profiled_events(prof)
+
+
+def profiled_events(prof):
+    """``profiled``'s numbers from a finished ``torch.profiler`` trace."""
+    from torch.autograd import DeviceType
+
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
         raise PhaseError("torch.profiler recorded no device activity")
@@ -2526,6 +2559,372 @@ def checkpoint_round_trip(cfg, seed, save, restore):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 12: multi-device and launch (M11)
+# ---------------------------------------------------------------------------
+SHARD_SLICES = (4, 8)   # 12c: slices of one cache, each with its global offset
+DRYRUN_ARCH = "llama3.2-1b"
+# 12d: (shape, --decode-attn) on the 16x16 fake mesh
+DRYRUN_COMBOS = [("train_4k", "local"), ("prefill_32k", "local"), ("decode_32k", "local"),
+                 ("long_500k", "local"), ("decode_32k", "shard_map")]
+
+
+def launcher_phase(card_str):
+    """12a: ``repro_torch.launch.serve`` at its defaults, on the card."""
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main([])
+    line = buf.getvalue().strip().splitlines()[-1] if buf.getvalue().strip() else ""
+    print(f"[12a] python -m repro_torch.launch.serve (defaults: qwen3-0.6b smoke, 16 requests, "
+          f"on the card): {line!r} ({time.perf_counter() - t0:.1f} s, {card_str})")
+    if not line.startswith("served 16 requests"):
+        raise PhaseError("the serving launcher printed no summary line")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def lse_slices_phase(main_shapes, card_str):
+    """12c: the port's flash-decode (``models/attention.py``:
+    ``flash_decode_slice`` on each of 4 and 8 slices of one full-width cache
+    (phase 2's main decode case), each at its global offset, the new row
+    written by the slice that holds its slot, one slice past the prefix and
+    one straddling it; then ``merge_slices`` with a reduction over the
+    stacked slices in place of the all-reduces), against unsharded K3 and
+    the plain version on the cache with the row written, per row as phase 2,
+    in bf16 and f32; each slice's log-sum-exp against the plain one's, and
+    the slices' caches against the written cache, bitwise. Returns the
+    largest error of the merged output against the plain version (bf16)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import attention
+
+    bq, qh, kvh, rows, d = main_shapes["decode"]
+    valid = main_shapes["decode_valid"]
+
+    def stacked(t, op):  # the all-reduce over the model axis, on stacked slices
+        return t.amax(0) if op == "max" else t.sum(0)
+
+    failures, worst, errs = [], {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = rand((bq, qh, 1, d), dtype, 9)
+        kc, vc = rand((bq, kvh, rows, d), dtype, 10), rand((bq, kvh, rows, d), dtype, 11)
+        k_new, v_new = rand((bq, kvh, 1, d), dtype, 12), rand((bq, kvh, 1, d), dtype, 13)
+        slot = torch.full((bq,), valid - 1, dtype=torch.int32, device=DEVICE)
+        lens = torch.full((bq,), valid, dtype=torch.int32, device=DEVICE)
+        kw, vw = kc.clone(), vc.clone()
+        kw[:, :, valid - 1], vw[:, :, valid - 1] = k_new[:, :, 0], v_new[:, :, 0]
+        whole = decode_attention(q, kw, vw, lens)
+        plain = ref.decode_attention_ref(q, kw, vw, lens)
+        tol = TOL["decode_attention"][dtype]
+        for n in SHARD_SLICES:
+            size = rows // n
+            outs, lses, kinds, ks_all, vs_all = [], [], [], [], []
+            for i in range(n):
+                start = i * size
+                ks = kc[:, :, start:start + size].contiguous()
+                vs = vc[:, :, start:start + size].contiguous()
+                o, lse = attention.flash_decode_slice(q, ks, vs, k_new, v_new, slot, lens, start,
+                                                      sm_scale=d ** -0.5)
+                local = min(max(valid - start, 0), size)
+                _, want_lse = ref.decode_attention_ref(
+                    q, ks, vs, torch.full((bq,), local, dtype=torch.int32, device=DEVICE),
+                    return_lse=True)
+                if local == 0:
+                    kinds.append("empty")
+                    if not torch.all(lse == float("-inf")):
+                        failures.append(f"{n} slices: slice {i} has no valid row, lse not -inf")
+                else:
+                    kinds.append("full" if local == size else f"straddling ({local})")
+                    e = (lse - want_lse).abs().max().item()
+                    errs[f"lse {dtype}"] = max(errs.get(f"lse {dtype}", 0.0), e)
+                    if e > 1e-4:
+                        failures.append(f"{n} slices: slice {i} lse off by {e:.3e} (limit 1e-4)")
+                outs.append(o)
+                lses.append(lse)
+                ks_all.append(ks)
+                vs_all.append(vs)
+            if not (torch.equal(torch.cat(ks_all, 2), kw) and torch.equal(torch.cat(vs_all, 2), vw)):
+                failures.append(f"{n} slices: the new row was not written by its slice alone")
+            merged = attention.merge_slices(torch.stack(outs), torch.stack(lses), stacked)
+            name = f"decode_attention {dtype} {n} slices"
+            errs[f"plain {dtype} {n}"] = compare(name + " vs plain", lambda: merged, plain,
+                                                 failures, worst, tol=tol, per_row=True)
+            errs[f"k3 {dtype} {n}"] = compare(name + " vs unsharded K3", lambda: merged, whole,
+                                              failures, worst, tol=tol, per_row=True)
+            print(f"[12c] the port's flash-decode (K3 log-sum-exp form), {n} slices of {size} "
+                  f"rows of cache ({bq},{kvh},{rows},{d}) {str(dtype)[6:]}, valid {valid}, row "
+                  f"{valid - 1} written by its slice: slices {', '.join(kinds)}; caches bitwise "
+                  f"the written one; merged against plain {errs[f'plain {dtype} {n}']:.3e}, "
+                  f"against unsharded K3 {errs[f'k3 {dtype} {n}']:.3e} (per-row limits, tol "
+                  f"{tol}); slice lse against plain at most {errs.get(f'lse {dtype}', 0.0):.3e} "
+                  f"({card_str})")
+    if failures:
+        raise PhaseError("; ".join(failures))
+    return max(errs[f"plain {torch.bfloat16} {n}"] for n in SHARD_SLICES)
+
+
+def sharded_serving_phase(args, card_str, ServeRequest):
+    """12b and 12e's step times: full-width llama3.2-1b on a (1, 1)
+    ("data", "model") NCCL mesh with ``DECODE_ATTN_MODE = "shard_map"`` and
+    the cache placed along its length: 8 ragged prompts, 32 greedy steps
+    each, eagerly; against the unsharded eager path on the same weights."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import _build
+    from repro_torch.launch import shardings
+    from repro_torch.models import attention
+    from repro_torch.models.layers import gather_logits
+    from repro_torch.models.model import build_model, greedy_token
+
+    cfg = get_config("llama3.2-1b")
+    steps, L = args.new_tokens, cfg.n_layers
+    reqs = make_requests(cfg, args.requests, steps, args.seed, ServeRequest)
+    model = build_model(cfg)
+    params = model.init(args.seed)
+
+    def run(req, sharded):
+        prompt = prompt_of(req)
+        cache = model.init_cache(1, prompt.shape[1] + steps)
+        if sharded:
+            cache, _ = shardings.place_cache(cache, cfg, mesh)
+        logits, _ = model.prefill(params, {"tokens": prompt}, cache)
+        logits = gather_logits(params, logits)
+        out, seen = [], [logits[:, -1:]]
+        tok = greedy_token(logits[:, -1:])
+        for _ in range(steps):
+            out.append(tok)
+            logits, _ = model.decode_step(params, cache, tok)
+            logits = gather_logits(params, logits)
+            seen.append(logits)
+            tok = greedy_token(logits)
+        return torch.cat(out, 1), torch.cat(seen, 1)
+
+    t0 = time.perf_counter()
+    want = [run(r, False) for r in reqs]
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1)
+    knobs = (attention.DECODE_ATTN_MODE, shardings.FORCE_SEQ_SHARD_CACHE)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        attention.DECODE_ATTN_MODE, shardings.FORCE_SEQ_SHARD_CACHE = "shard_map", True
+        with sh.use_mesh(mesh, shardings.make_rules(cfg, mesh)):
+            shardings.place_params(params, cfg, mesh)
+            _build.reset_counters()
+            sh.reset_comm_counters()
+            t0 = time.perf_counter()
+            got = [run(r, True) for r in reqs]
+            torch.cuda.synchronize()
+            t_sharded = time.perf_counter() - t0
+            counts = {"launches": dict(_build.launches), "plain": dict(_build.plain),
+                      "form_launches": dict(_build.form_launches),
+                      "collectives": dict(sh.comm_counts)}
+            print(json.dumps({"counters": {"path": "sharded llama3.2-1b", **counts}}))
+            n = len(reqs)
+            expected = {"launches": {"matmul": 0, "flash_attention": L * n, "decode_attention": 0},
+                        "plain": {k: 0 for k in _build.KERNELS},
+                        "form_launches": {"decode_attention_lse": L * steps * n},
+                        "collectives": 0}
+            if (counts["launches"] != expected["launches"] or counts["plain"] != expected["plain"]
+                    or counts["form_launches"] != expected["form_launches"]
+                    or sum(counts["collectives"].values()) != expected["collectives"]):
+                raise PhaseError(f"sharded serving counts {counts}; expected {expected}")
+            same = all(torch.equal(a[0], b[0]) for a, b in zip(got, want))
+            err = max(((a[1].float() - b[1].float()).abs().max() / b[1].float().abs().max()).item()
+                      for a, b in zip(got, want))
+            print(f"[12b] llama3.2-1b full width ({L} layers, bf16) on a (1, 1) (data, model) "
+                  f"NCCL mesh, DECODE_ATTN_MODE shard_map, cache along its length: {n} ragged "
+                  f"prompts ({min(len(r.prompt) for r in reqs)}-{max(len(r.prompt) for r in reqs)} "
+                  f"tokens) x {steps} greedy steps eagerly; K2 {counts['launches']['flash_attention']}, "
+                  f"K3 log-sum-exp form {counts['form_launches']['decode_attention_lse']} "
+                  f"(= {L} x {steps} x {n}: one a layer a step, each merged by merge_slices), K3 0, "
+                  f"plain 0; collectives {sum(counts['collectives'].values())} (every one skipped "
+                  f"at size 1; the merge's 3 all-reduces a call are held on gloo groups); "
+                  f"tokens identical to the unsharded eager path: {same}; max |logit difference| / "
+                  f"max |logit| {err:.3e} (limit {BF16_LOGIT_LIMIT:.1e}); wall {t_sharded:.2f} s "
+                  f"sharded, {t_plain:.2f} s unsharded ({card_str})")
+            if not same or err > BF16_LOGIT_LIMIT:
+                raise PhaseError("the sharded decode disagrees with the unsharded path")
+
+            # 12e: one request's eager decode step, unsharded and sharded in turns
+            req = max(reqs, key=lambda r: len(r.prompt))
+            prompt = prompt_of(req)
+
+            def step_ms(sharded, profile=False):
+                """One eager step's ms, or with ``profile`` its host profile."""
+                cache = model.init_cache(1, prompt.shape[1] + steps)
+                placed = {m: m.tp for m in params.modules() if "tp" in vars(m)}
+                if sharded:
+                    cache, _ = shardings.place_cache(cache, cfg, mesh)
+                else:  # the unsharded path: no module placed
+                    for m in placed:
+                        m.tp = None
+                attention.DECODE_ATTN_MODE = "shard_map" if sharded else "local"
+                try:
+                    logits, _ = model.prefill(params, {"tokens": prompt}, cache)
+                    tok = greedy_token(logits[:, -1:])
+                    for _ in range(3):
+                        model.decode_step(params, cache, tok)
+                    cache["lengths"].fill_(prompt.shape[1])
+
+                    def run_steps():
+                        tok_ = tok
+                        for _ in range(steps):
+                            logits, _ = model.decode_step(params, cache, tok_)
+                            tok_ = greedy_token(gather_logits(params, logits))
+
+                    if profile:
+                        return host_profile(run_steps, steps)
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    run_steps()
+                    torch.cuda.synchronize()
+                    return (time.perf_counter() - t) * 1e3 / steps
+                finally:
+                    for m, tp in placed.items():
+                        m.tp = tp
+
+            turns = [("unsharded", step_ms(False)), ("sharded", step_ms(True)),
+                     ("sharded", step_ms(True)), ("unsharded", step_ms(False))]
+            print(f"[12e] eager decode step of one {prompt.shape[1]}-token request, host clock "
+                  f"over {steps} steps with a device synchronize, in turns: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in turns) + f" ({card_str})")
+            for sharded in (False, True):
+                print(f"[12e] {'sharded' if sharded else 'unsharded'} step under torch.profiler: "
+                      f"{step_ms(sharded, profile=True)} ({card_str})")
+        return counts["form_launches"]["decode_attention_lse"]
+    finally:
+        attention.DECODE_ATTN_MODE, shardings.FORCE_SEQ_SHARD_CACHE = knobs
+        for m in params.modules():
+            if hasattr(m, "tp") and "tp" in vars(m):
+                del m.tp
+        dist.destroy_process_group()
+
+
+def host_profile(fn, n_steps: int, top: int = 8) -> str:
+    """``fn()`` (``n_steps`` eager decode steps) under ``torch.profiler``:
+    per step the device's busy ms, the host self time (the profiler's own
+    cost inflates it), that of the collectives (``record_param_comms`` and
+    the c10d/NCCL ops) and the ``top`` host ops by self time, with their
+    calls a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    _, _, busy, _, _ = profiled_events(prof)
+    avg = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
+    coll = sum(e.self_cpu_time_total for e in avg if any(
+        k in e.key.lower() for k in ("nccl", "c10d", "allreduce", "all_reduce", "param_comms")))
+    host = sum(e.self_cpu_time_total for e in avg)
+    heavy = sorted(avg, key=lambda e: -e.self_cpu_time_total)[:top]
+    return (f"device busy {busy / n_steps:.3f} ms a step, host self time "
+            f"{host / 1e3 / n_steps:.3f} ms of which collectives {coll / 1e3 / n_steps:.3f} ms; "
+            "heaviest host ops a step: " + "; ".join(
+                f"{e.key[:48]} {e.self_cpu_time_total / 1e3 / n_steps:.3f} ms in "
+                f"{e.count / n_steps:g}" for e in heavy))
+
+
+_DRYRUN = r"""
+import json, sys
+from repro_torch.launch.dryrun import run_one
+combos = json.loads(sys.argv[1])
+out = [run_one(sys.argv[2], s, decode_attn=a, tag="" if a == "local" else a) for s, a in combos]
+print(json.dumps(out))
+"""
+
+
+def dryrun_phase(card_str):
+    """12d: the port's dry-run of llama3.2-1b at its four shapes on the 16x16
+    fake mesh, and decode_32k with the length-sharded flash-decode: host
+    work in a child process (a fake process group is process-global)."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _DRYRUN, json.dumps(DRYRUN_COMBOS), DRYRUN_ARCH],
+                         capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    if res.returncode != 0:
+        raise PhaseError(f"dry-run failed: {res.stderr[-2000:]}")
+    for line in res.stdout.splitlines():
+        if line.startswith(("OK", "SKIP", "FAIL")):
+            print(f"[12d] {line}")
+    results = json.loads(res.stdout.strip().splitlines()[-1])
+    for r in results:
+        if r["status"] != "ok":
+            raise PhaseError(f"dry-run {r['arch']} x {r['shape']}: {r['status']}")
+        f = r["roofline"]
+        coll = ", ".join(f"{k} {f['collective_counts'][k]} ({v / 1e6:.3f} MB)"
+                         for k, v in f["collective_bytes_by_kind"].items() if f["collective_counts"][k])
+        print(f"[12d] {r['arch']} x {r['shape']} [{r['opts']['decode_attn']}] per device: "
+              f"{f['flops_per_dev']:.4e} FLOP, {f['hbm_bytes_per_dev']:.4e} HBM bytes "
+              f"(estimate), {f['collective_bytes_per_dev']:.4e} wire bytes ({coll or 'none'}); "
+              f"H100 SXM5 data-sheet terms compute {f['t_compute_s']:.4e} s, memory "
+              f"{f['t_memory_s']:.4e} s, collective {f['t_collective_s']:.4e} s -> "
+              f"{f['bottleneck']}; args {r['memory']['argument_bytes'] / 2**30:.3f} GiB, temp "
+              f"{r['memory']['temp_bytes'] / 2**30:.3f} GiB a device")
+    print(f"[12d] dry-run of {len(results)} combos took {time.perf_counter() - t0:.1f} s on the "
+          f"host (no device; {card_str} idle)")
+
+
+def lse_time_row(main_shapes, launches, err, card_str):
+    """12e: K3 with and without its log-sum-exp at 12c's shape, the plain
+    version's pair, and aten's efficient attention with its log-sum-exp over
+    the valid keys (kv heads repeated outside the timing) as the library
+    call; the kernels line's entry for the form."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    bq, qh, kvh, rows, d = main_shapes["decode"]
+    valid = main_shapes["decode_valid"]
+    q = rand((bq, qh, 1, d), torch.bfloat16, 9)
+    kc, vc = rand((bq, kvh, rows, d), torch.bfloat16, 10), rand((bq, kvh, rows, d), torch.bfloat16, 11)
+    lens = torch.full((bq,), valid, dtype=torch.int32, device=DEVICE)
+    bms, by = bound(2 * (2 * bq * kvh * valid * d + 2 * bq * qh * d) + 4 * bq + 4 * bq * qh,
+                    4 * d * bq * qh * valid, torch.bfloat16)
+    ms = graph_ms(lambda: decode_attention(q, kc, vc, lens, return_lse=True))
+    ms_plain_k3 = graph_ms(lambda: decode_attention(q, kc, vc, lens))
+    plain_ms = graph_ms(lambda: ref.decode_attention_ref(q, kc, vc, lens, return_lse=True))
+    kx = kc[:, :, :valid].repeat_interleave(qh // kvh, dim=1)
+    vx = vc[:, :, :valid].repeat_interleave(qh // kvh, dim=1)
+    lib_ms = graph_ms(
+        lambda: torch.ops.aten._scaled_dot_product_efficient_attention(q, kx, vx, None, True))
+    print(f"[12e] decode_attention_lse q({bq},{qh},1,{d}) cache({bq},{kvh},{rows},{d}) valid "
+          f"{valid} bf16: kernel with log-sum-exp {ms:.5f} ms, without {ms_plain_k3:.5f} ms | "
+          f"bound {bms:.5f} ms ({by}) | plain {plain_ms:.5f} ms | library (efficient attention "
+          f"with log-sum-exp) {lib_ms:.5f} ms | launches on the sharded path {launches} ({card_str})")
+    src, replaces = SOURCES["decode_attention"]
+    return [{"name": "decode_attention_lse", "route": "cuda", "source": src, "replaces": replaces,
+             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}]
+
+
+def multidevice_phase(args, card_str, main_shapes):
+    """Phase 12: the serving launcher, the sharded decode on a (1, 1) mesh,
+    K3's log-sum-exp form over slices of one cache, the dry-run, and times."""
+    from repro_torch.serving.backend import ServeRequest
+
+    t0 = time.perf_counter()
+    launcher_phase(card_str)
+    launches = sharded_serving_phase(args, card_str, ServeRequest)
+    err = lse_slices_phase(main_shapes, card_str)
+    dryrun_phase(card_str)
+    rows = lse_time_row(main_shapes, launches, err, card_str)
+    torch.cuda.empty_cache()
+    print(f"[12] phase 12 took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # seed 2: the gated arm's first cold replicas fail the gate, so a run shows
@@ -2640,6 +3039,9 @@ def main() -> int:
 
     # 11. training
     kernels += train_phase(args, card_str)
+
+    # 12. multi-device and launch
+    kernels += multidevice_phase(args, card_str, main_shapes)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_str)

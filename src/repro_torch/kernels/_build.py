@@ -17,7 +17,11 @@ counts the calls the dispatcher (:mod:`repro_torch.kernels.ops`) sent to a
 kernel's plain PyTorch version; ``backward`` counts the plain-version
 recomputations that a kernel's autograd backward made (the flash-attention
 kernel has a forward only: its gradient is the plain version's, taken by
-autograd). A run that claims to have gone through the kernels resets them
+autograd). A kernel's second form, one with another output, counts apart in
+``form_launches`` and ``form_plain`` (``decode_attention_lse``: K3 with its
+log-sum-exp, the local half of the length-sharded flash-decode), so the
+counts of the form that serving launches stay as they were.
+A run that claims to have gone through the kernels resets them
 with :func:`reset_counters` and reads them afterwards.
 A CUDA graph counts what it recorded at each replay (:func:`recording`,
 :func:`replayed`): its capture runs nothing, so it counts nothing.
@@ -53,16 +57,20 @@ NVCC_FLAGS = (
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
+FORMS = ("decode_attention_lse",)
+
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 plain: dict[str, int] = {name: 0 for name in KERNELS}
 backward: dict[str, int] = {name: 0 for name in KERNELS}
+form_launches: dict[str, int] = {name: 0 for name in FORMS}
+form_plain: dict[str, int] = {name: 0 for name in FORMS}
 
 _libs: dict[str, ctypes.CDLL] = {}
 last_build_s: float | None = None  # wall time of the last build, None if loaded
 
 
 def reset_counters() -> None:
-    for d in (launches, plain, backward):
+    for d in (launches, plain, backward, form_launches, form_plain):
         for name in d:
             d[name] = 0
 
@@ -160,7 +168,7 @@ _SIGNATURES = {
     ),
     "decode_attention": (
         "repro_decode_attention",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     ),
 }
 
@@ -177,8 +185,12 @@ def kernel(name: str):
     return getattr(_libs[name], _SIGNATURES[name][0])
 
 
-def check(name: str, err: int) -> None:
-    """Raise if a launch returned a CUDA error; count it otherwise."""
+def check(name: str, err: int, form: str | None = None) -> None:
+    """Raise if a launch returned a CUDA error; count it otherwise (under
+    ``form`` in ``form_launches`` when one is given)."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    launches[name] += 1
+    if form is None:
+        launches[name] += 1
+    else:
+        form_launches[form] += 1

@@ -38,6 +38,11 @@
 //   replay start clean. The fixed order makes the result bitwise repeatable.
 //   An empty split writes m = -inf, l = 0 and is merged as a factor of 0; a
 //   length of 0 gives zeros, as the Pallas kernel does.
+// - Log-sum-exp. Given an `lse` pointer, the merging CTA also writes each
+//   head's max + log(sum) of the scaled scores in f32 (-inf at length 0),
+//   which it holds anyway: what a caller needs to merge outputs computed
+//   over slices of one cache (the length-sharded flash-decode). Without it
+//   nothing else changes.
 // - CUDA cores, not tensor cores: at the main shape the work is 2.2 MFLOP
 //   over 545 KB. A wgmma tile has 64 rows and mma.sync at least 16, against
 //   4 query heads a kv head, so either would waste most of the product.
@@ -130,9 +135,9 @@ constexpr int warps() { return smem_bytes<T, D, G>(4) <= 46 * 1024 ? 4 : 2; }
 template <typename T, int D, int G, int W>
 __global__ void __launch_bounds__(32 * W)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const int* __restrict__ lengths, T* __restrict__ o, float* __restrict__ ws,
-              int* __restrict__ tickets, int q_heads, int kv_heads, int s_len, int group,
-              int n_splits, float sm_scale) {
+              const int* __restrict__ lengths, T* __restrict__ o, float* __restrict__ lse,
+              float* __restrict__ ws, int* __restrict__ tickets, int q_heads, int kv_heads,
+              int s_len, int group, int n_splits, float sm_scale) {
   constexpr int THREADS = 32 * W;
   constexpr int TK = 32 * W;            // keys a tile
   constexpr int CH = D * sizeof(T) / 16;  // 16-byte chunks a row
@@ -371,7 +376,11 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     const float f = ms == -INFINITY ? 0.f : expf(ms - mx);  // an empty split: 0
     const float lsum = warp_sum(ls * f);                    // 0 where the prefix is empty
     if (held) fac[lane * group + g] = f;
-    if (lane == 0) alpha_s[g] = lsum;
+    if (lane == 0) {
+      alpha_s[g] = lsum;
+      if (lse != nullptr)  // log(l) + max over every split; -inf at length 0
+        lse[(int64_t)b * q_heads + h0 + g] = lsum > 0.f ? mx + logf(lsum) : -INFINITY;
+    }
   }
   __syncthreads();
   if (tid == 0) tickets[bk] = 0;
@@ -410,22 +419,23 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 }
 
 template <typename T, int D, int G>
-int launch(const void* q, const void* k, const void* v, const int* lengths, void* o, void* ws,
-           void* tickets, int batch, int q_heads, int kv_heads, int s_len, int n_splits,
+int launch(const void* q, const void* k, const void* v, const int* lengths, void* o, void* lse,
+           void* ws, void* tickets, int batch, int q_heads, int kv_heads, int s_len, int n_splits,
            float sm_scale, cudaStream_t stream) {
   constexpr int W = warps<T, D, G>();
   decode_kernel<T, D, G, W><<<batch * kv_heads * n_splits, 32 * W, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      static_cast<T*>(o), static_cast<float*>(ws), static_cast<int*>(tickets), q_heads, kv_heads,
+      static_cast<T*>(o), static_cast<float*>(lse), static_cast<float*>(ws),
+      static_cast<int*>(tickets), q_heads, kv_heads,
       s_len, q_heads / kv_heads, n_splits, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-#define REPRO_DECODE_ARGS q, k, v, lengths, o, ws, tickets, batch, q_heads, kv_heads, s_len, n_splits, sm_scale, s
+#define REPRO_DECODE_ARGS q, k, v, lengths, o, lse, ws, tickets, batch, q_heads, kv_heads, s_len, n_splits, sm_scale, s
 
 template <typename T, int D>
 int dispatch_g(const void* q, const void* k, const void* v, const int* lengths, void* o,
-               void* ws, void* tickets, int batch, int q_heads, int kv_heads, int s_len,
+               void* lse, void* ws, void* tickets, int batch, int q_heads, int kv_heads, int s_len,
                int n_splits, float sm_scale, cudaStream_t s) {
   const int group = q_heads / kv_heads;
   if (group <= 1) return launch<T, D, 1>(REPRO_DECODE_ARGS);
@@ -438,7 +448,7 @@ int dispatch_g(const void* q, const void* k, const void* v, const int* lengths, 
 
 template <typename T>
 int dispatch_d(int d, const void* q, const void* k, const void* v, const int* lengths, void* o,
-               void* ws, void* tickets, int batch, int q_heads, int kv_heads, int s_len,
+               void* lse, void* ws, void* tickets, int batch, int q_heads, int kv_heads, int s_len,
                int n_splits, float sm_scale, cudaStream_t s) {
   switch (d) {
     case 64: return dispatch_g<T, 64>(REPRO_DECODE_ARGS);
@@ -451,7 +461,9 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, const int* le
 }  // namespace
 
 // q, o (batch, q_heads, 1, d); k, v (batch, kv_heads, s_len, d); lengths
-// (batch,) int32 on the device; all contiguous and 16-byte aligned.
+// (batch,) int32 on the device; all contiguous and 16-byte aligned. lse:
+// null, or (batch, q_heads) f32 that receives each head's log-sum-exp of the
+// scaled scores over its valid prefix (-inf at length 0).
 // workspace: batch * kv_heads * n_splits * group * (d + 2) floats, no
 // initial value needed. tickets: batch * kv_heads int32, zero before the
 // first call; every call leaves them zero. Calls that share tickets must not
@@ -459,7 +471,8 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, const int* le
 // 128}; q_heads / kv_heads <= 16; 1 <= n_splits <= MAX_SPLITS (32). Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
-                                      const void* lens, void* o, void* ws, void* tickets,
+                                      const void* lens, void* o, void* lse, void* ws,
+                                      void* tickets,
                                       int batch, int q_heads, int kv_heads, int s_len, int d,
                                       int n_splits, float sm_scale, int dtype, void* stream) {
   if (n_splits < 1 || n_splits > MAX_SPLITS) return static_cast<int>(cudaErrorInvalidValue);

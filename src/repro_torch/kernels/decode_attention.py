@@ -21,6 +21,13 @@ plain version is :func:`plain` (``ref.decode_attention_ref``). They differ at
 one point, which the tests pin: at length 0 the kernel returns zeros, as the
 Pallas kernel does, where the plain version returns the mean of V. Serving
 never asks for length 0.
+
+With ``return_lse=True`` the kernel also returns each head's log-sum-exp of
+the scaled scores over its valid prefix, (batch, q_heads) in f32, ``-inf`` at
+length 0: the merging CTA holds the global max and sum anyway. Outputs
+computed over slices of one cache merge exactly with it (the length-sharded
+flash-decode, :mod:`repro_torch.models.attention`). Such a launch counts as
+``decode_attention_lse`` (``_build.form_launches``); the output is as without it.
 """
 from __future__ import annotations
 
@@ -91,7 +98,8 @@ def decode_attention(
     lengths: torch.Tensor,  # (batch,) int32 valid prefix per sequence
     *,
     sm_scale: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     tensors = (q, k_cache, v_cache, lengths)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("decode_attention kernel takes CUDA tensors on one device")
@@ -117,15 +125,20 @@ def decode_attention(
         sm_scale = 1.0 / math.sqrt(d)
     splits = n_splits(batch, kv_heads, s_len)
     out = torch.empty_like(q)
+    lse = (torch.empty((batch, q_heads), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     with torch.cuda.device(q.device):
         tickets = _tickets_for(q.device)
         workspace = torch.empty(batch * q_heads * splits * (d + 2), dtype=torch.float32,
                                 device=q.device)
         err = _build.kernel("decode_attention")(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), workspace.data_ptr(), tickets.data_ptr(), batch, q_heads,
+            out.data_ptr(), None if lse is None else lse.data_ptr(), workspace.data_ptr(), tickets.data_ptr(), batch, q_heads,
             kv_heads, s_len, d, splits, float(sm_scale), _build.DTYPES[q.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check("decode_attention", err)
-    return out
+    if lse is None:
+        _build.check("decode_attention", err)
+        return out
+    _build.check("decode_attention", err, form="decode_attention_lse")
+    return out, lse

@@ -34,6 +34,8 @@ from .matmul_probe import matmul as _matmul
 launches = _build.launches
 plain = _build.plain
 backward = _build.backward
+form_launches = _build.form_launches
+form_plain = _build.form_plain
 reset_counters = _build.reset_counters
 
 
@@ -94,9 +96,17 @@ def decode_attention(
     *,
     sm_scale: Optional[float] = None,
     use_kernel: bool = True,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
+    """The output, or with ``return_lse`` the pair (output, log-sum-exp
+    (batch, q_heads) f32), counted as ``decode_attention_lse``."""
     if use_kernel and _on_card(q):
         _no_grad_kernel("decode_attention", q, k_cache, v_cache)
-        return _decode_attention(q, k_cache, v_cache, lengths, sm_scale=sm_scale)
-    plain["decode_attention"] += 1
-    return ref.decode_attention_ref(q, k_cache, v_cache, lengths, sm_scale=sm_scale)
+        return _decode_attention(q, k_cache, v_cache, lengths, sm_scale=sm_scale,
+                                 return_lse=return_lse)
+    if return_lse:
+        form_plain["decode_attention_lse"] += 1
+    else:
+        plain["decode_attention"] += 1
+    return ref.decode_attention_ref(q, k_cache, v_cache, lengths, sm_scale=sm_scale,
+                                    return_lse=return_lse)

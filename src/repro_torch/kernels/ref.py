@@ -62,7 +62,22 @@ def decode_attention_ref(
     lengths: torch.Tensor,  # (batch,)
     *,
     sm_scale: Optional[float] = None,
-) -> torch.Tensor:
-    return attention_ref(
+    return_lse: bool = False,
+):
+    """With ``return_lse`` also each head's log-sum-exp of the scaled scores
+    over its valid prefix, (batch, q_heads) f32, ``-inf`` at length 0: the
+    pair the kernel's log-sum-exp form returns."""
+    out = attention_ref(
         q, k_cache, v_cache, causal=False, sm_scale=sm_scale, lengths=lengths
     )
+    if not return_lse:
+        return out
+    batch, q_heads, _, d = q.shape
+    kv_heads, s_len = k_cache.shape[1], k_cache.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(batch, kv_heads, q_heads // kv_heads, d).float()
+    s = torch.einsum("bkgd,bksd->bkgs", qg, k_cache.float()) * sm_scale
+    valid = torch.arange(s_len, device=q.device) < lengths.to(q.device)[:, None]  # (batch, S)
+    s = s.masked_fill(~valid[:, None, None], float("-inf"))
+    return out, torch.logsumexp(s, dim=-1).reshape(batch, q_heads)

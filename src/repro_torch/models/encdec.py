@@ -22,12 +22,16 @@ flash-attention kernel's non-causal ``k`` and ``v``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from .attention import Attention, decode_attention_step, prefill_attention
-from .layers import SwiGLU, cross_entropy, normal_init, remat as _remat, rms_norm, unembed
+from ..distributed import sharding as sh
+from ..distributed.sharding import shard
+from .attention import Attention, decode_attention_step, prefill_attention, store_prefill_kv
+from .layers import SwiGLU, cross_entropy, embed, normal_init, remat as _remat, rms_norm, unembed
 
 
 def _norm(cfg: ArchConfig, device: torch.device) -> nn.Parameter:
@@ -80,6 +84,8 @@ class EncDec(nn.Module):
     dict): ``embed``, ``encoder`` layers, ``enc_norm``, ``decoder`` layers,
     ``final_norm`` and an untied ``unembed``."""
 
+    tp: Optional[sh.TensorParallel] = None  # set by launch.shardings.place_params
+
     def __init__(self, cfg: ArchConfig, device: torch.device) -> None:
         super().__init__()
         dt = cfg.torch_dtype
@@ -117,7 +123,7 @@ def encode(cfg: ArchConfig, params: EncDec, frames: torch.Tensor, *, remat: bool
     """frames: (B, F, d_model), the stub frontend's output, cast to the
     model's dtype. Returns the normed encoder output (B, F, d_model)."""
     B, F, _ = frames.shape
-    x = frames.to(cfg.torch_dtype)
+    x = shard(frames.to(cfg.torch_dtype), "batch", "seq", None)
     positions = _positions(B, F, x.device)
     for p in params.encoder:
 
@@ -137,6 +143,8 @@ def encode(cfg: ArchConfig, params: EncDec, frames: torch.Tensor, *, remat: bool
 def _cross_kv(p_attn: Attention, enc_out: torch.Tensor):
     """The encoder output's keys and values for one cross-attention block,
     (B, F, K, hd) each."""
+    if p_attn.tp is not None and p_attn.tp.heads:
+        enc_out = sh.copy_to(enc_out)
     k = torch.einsum("bsd,dhk->bshk", enc_out, p_attn.wk)
     v = torch.einsum("bsd,dhk->bshk", enc_out, p_attn.wv)
     return k, v
@@ -148,7 +156,7 @@ def decode_train(cfg: ArchConfig, params: EncDec, tokens: torch.Tensor,
     """The decoder over a whole token sequence (B, S), teacher-forced.
     Returns logits (B, S, V)."""
     B, S = tokens.shape
-    x = params.embed[tokens.long()]
+    x = shard(embed(params.embed, tokens, params.tp), "batch", "seq", None)
     positions = _positions(B, S, x.device)
     for p in params.decoder:
 
@@ -170,6 +178,8 @@ def decode_train(cfg: ArchConfig, params: EncDec, tokens: torch.Tensor,
 
         x = _remat(body, x, enc_out) if remat else body(x, enc_out)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    if params.tp is not None and params.tp.out_vocab:
+        x = sh.copy_to(x)
     return unembed(x, params.unembed)
 
 
@@ -188,7 +198,7 @@ def loss_fn(cfg: ArchConfig, params: EncDec, batch, *, remat: bool = True,
     """batch: {"frames", "tokens", "labels"}. Returns (ce + aux, {"ce",
     "nll", "aux"}), 0-dim f32 tensors."""
     logits, aux = forward(cfg, params, batch, remat=remat, use_kernel=use_kernel)
-    ce, nll = cross_entropy(logits, batch["labels"])
+    ce, nll = cross_entropy(logits, batch["labels"], tp=params.tp)
     return ce + aux, {"ce": ce, "nll": nll, "aux": aux}
 
 
@@ -216,8 +226,12 @@ def prefill(cfg: ArchConfig, params: EncDec, frames: torch.Tensor, cache, *,
     enc_out = encode(cfg, params, frames, remat=False, use_kernel=use_kernel)
     for i, p in enumerate(params.decoder):
         k, v = _cross_kv(p.cross_attn, enc_out)
-        cache["cross_k"][i] = k.transpose(1, 2)
-        cache["cross_v"][i] = v.transpose(1, 2)
+        if p.cross_attn.tp is None:
+            cache["cross_k"][i] = k.transpose(1, 2)
+            cache["cross_v"][i] = v.transpose(1, 2)
+        else:
+            store_prefill_kv(cache["cross_k"][i], k.transpose(1, 2), p.cross_attn.tp)
+            store_prefill_kv(cache["cross_v"][i], v.transpose(1, 2), p.cross_attn.tp)
     cache["lengths"].zero_()
     return None, cache
 
@@ -227,9 +241,12 @@ def decode_step(cfg: ArchConfig, params: EncDec, cache, tokens: torch.Tensor, *,
     """One greedy decode step. tokens: (B, 1) int32, the current token.
     Returns (logits (B, 1, V), cache updated in place)."""
     B = tokens.shape[0]
-    x = params.embed[tokens.long()]
+    x = embed(params.embed, tokens, params.tp)
     lengths = cache["lengths"]
     frames = cache["cross_k"].shape[3]
+    cross_tp = params.decoder[0].cross_attn.tp if len(params.decoder) else None
+    if cross_tp is not None and cross_tp.cache_dim == 2:  # this rank's slice of the frames
+        frames *= sh.mesh_size(sh.current_mesh(), sh.MODEL_AXIS)
     all_frames = torch.full((B,), frames, dtype=torch.int32, device=x.device)
     for i, p in enumerate(params.decoder):
         h = decode_attention_step(

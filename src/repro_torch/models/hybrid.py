@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..distributed.sharding import shard
 from .attention import Attention, decode_attention_step, prefill_attention
 from .layers import (SwiGLU, cross_entropy, normal_init, parameter, remat as _remat, rms_norm,
                      unembed)
@@ -233,7 +234,7 @@ def _shared_attn_prefill(cfg: ArchConfig, p: SharedBlock, x, positions, use_kern
 def _embed(params: Zamba2, tokens: torch.Tensor):
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
-    return params.embed[tokens.long()], positions
+    return shard(params.embed[tokens.long()], "batch", "seq", None), positions
 
 
 def forward(cfg: ArchConfig, params: Zamba2, tokens: torch.Tensor, *, remat: bool = True,
@@ -323,7 +324,7 @@ def decode_step(cfg: ArchConfig, params: Zamba2, cache, tokens: torch.Tensor, *,
     """One greedy decode step. tokens: (B, 1) int32, the current token.
     Returns (logits (B, 1, V), cache updated in place: each new state is
     computed, then copied in)."""
-    x = params.embed[tokens.long()]
+    x = shard(params.embed[tokens.long()], "batch", "seq", None)
     lengths = cache["lengths"]
     for gi, layers, attn in _groups(cfg):
         for li in layers:

@@ -1,11 +1,19 @@
 """Shared neural building blocks (plain PyTorch ops on tensors, and the
-SwiGLU weights that the dense FFN and the MoE's shared experts hold)."""
+SwiGLU weights that the dense FFN and the MoE's shared experts hold).
+
+On a mesh a placed SwiGLU holds this rank's ff columns (``w_gate``,
+``w_up``) and rows (``w_down``) and all-reduces its partial output; a placed
+embedding holds a block of vocab rows (:func:`embed`)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+
+from ..distributed import sharding as sh
 
 
 def normal_init(shape, scale: float, dtype: torch.dtype, generator: torch.Generator) -> torch.Tensor:
@@ -45,10 +53,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP: down( silu(x@gate) * (x@up) )."""
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    h = sh.shard(F.silu(x @ w_gate) * (x @ w_up), "batch", None, "ff")
+    return h @ w_down
 
 
 class SwiGLU(nn.Module):
+    tp: Optional[sh.TensorParallel] = None  # set by launch.shardings.place_params
+
     def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype, device: torch.device) -> None:
         super().__init__()
 
@@ -68,7 +79,9 @@ class SwiGLU(nn.Module):
             w.copy_(normal_init(tuple(w.shape), scale, w.dtype, generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return swiglu(x, self.w_gate, self.w_up, self.w_down)
+        if self.tp is None or not self.tp.ff:
+            return swiglu(x, self.w_gate, self.w_up, self.w_down)
+        return sh.all_reduce(swiglu(sh.copy_to(x), self.w_gate, self.w_up, self.w_down))
 
 
 def remat(fn, *args):
@@ -84,16 +97,48 @@ def remat(fn, *args):
 
 
 def unembed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Logits projection."""
-    return x @ w
+    """Logits projection (this rank's vocab columns where ``w`` is placed)."""
+    return sh.shard(x @ w, "batch", None, "vocab")
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_weight: float = 1e-4):
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          tp: Optional[sh.TensorParallel] = None) -> torch.Tensor:
+    """Rows of ``table`` for ``tokens``. With ``tp.vocab`` the table holds
+    this rank's block of vocab rows: a masked lookup, all-reduced."""
+    if tp is None or not tp.vocab:
+        return table[tokens.long()]
+    rows = table.shape[0]
+    ids = tokens.long() - sh.coordinate(sh.MODEL_AXIS) * rows
+    inside = (ids >= 0) & (ids < rows)
+    return sh.all_reduce(table[ids.clamp(0, rows - 1)] * inside[..., None].to(table.dtype))
+
+
+def gather_logits(params: nn.Module, logits: torch.Tensor) -> torch.Tensor:
+    """Every vocab column of logits that a placed model computed on this
+    rank's columns (``repro`` leaves them vocab-sharded too); as they are
+    otherwise."""
+    tp = getattr(params, "tp", None)
+    return sh.all_gather(logits, logits.dim() - 1) if tp is not None and tp.out_vocab else logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_weight: float = 1e-4,
+                  tp: Optional[sh.TensorParallel] = None):
     """Token-mean cross entropy with z-loss, in f32; logits (B, S, V), labels
-    (B, S). Returns (ce + z mean, nll mean)."""
+    (B, S). Returns (ce + z mean, nll mean). With ``tp.out_vocab`` the logits
+    are this rank's vocab columns: the log-sum-exp and the gold logit are
+    reduced over the model axis (Megatron's vocab-parallel loss)."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if tp is not None and tp.out_vocab:
+        cols = logits.shape[-1]
+        m = sh.all_reduce(logits.detach().amax(dim=-1), op="max")
+        lse = m + torch.log(sh.all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1)))
+        ids = labels.long() - sh.coordinate(sh.MODEL_AXIS) * cols
+        inside = (ids >= 0) & (ids < cols)
+        gold = torch.gather(logits, -1, ids.clamp(0, cols - 1)[..., None])[..., 0]
+        gold = sh.all_reduce(gold * inside)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - gold
     z = z_weight * (lse**2)
     return torch.mean(nll + z), torch.mean(nll)

@@ -19,12 +19,16 @@ token's queue position is ``>= C``); ``F.one_hot`` would raise there.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig, MoEConfig
-from .layers import SwiGLU, normal_init
+from ..distributed import sharding as sh
+from ..distributed.sharding import shard
+from .layers import SwiGLU, normal_init, swiglu
 
 
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -41,7 +45,11 @@ class MoE(nn.Module):
     """The weights of one MoE FFN (``repro.models.moe.init_moe``'s tree):
     ``router`` (d, E) in f32, ``w_gate``/``w_up`` (E, d, d_e), ``w_down``
     (E, d_e, d), and with ``n_shared > 0`` a ``shared`` SwiGLU of width
-    ``n_shared * d_e``."""
+    ``n_shared * d_e``. Placed on a mesh, it holds this rank's block of
+    experts (and of the shared experts' ff columns): the dispatch keeps the
+    rank's experts' slots, and the partial outputs are all-reduced once."""
+
+    tp: Optional[sh.TensorParallel] = None  # set by launch.shardings.place_params
 
     def __init__(self, cfg: ArchConfig, device: torch.device) -> None:
         super().__init__()
@@ -126,14 +134,33 @@ def dispatch_combine(m: MoEConfig, probs: torch.Tensor) -> tuple[torch.Tensor, t
 
 def _experts(m: MoEConfig, p: MoE, x: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
     dispatch, combine = dispatch_combine(m, probs)
+    tp = p.tp
+    if tp is not None and tp.experts:
+        dispatch = shard(dispatch, "batch", None, "expert", None)
+        combine = shard(combine, "batch", None, "expert", None)
+        x = sh.copy_to(x)
     xe = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), x)       # (B, E, C, d)
     h = torch.einsum("becd,edf->becf", xe, p.w_gate)
     u = torch.einsum("becd,edf->becf", xe, p.w_up)
     ye = torch.einsum("becf,efd->becd", F.silu(h) * u, p.w_down)       # (B, E, C, d)
     y = torch.einsum("bsec,becd->bsd", combine.to(x.dtype), ye)
+    if tp is None:
+        if p.shared is not None:
+            y = y + p.shared(x)
+        return y
+    # the local program: one all-reduce of the split parts' partial sums
+    split = [y] if tp.experts else []
+    whole = [] if tp.experts else [y]
     if p.shared is not None:
-        y = y + p.shared(x)
-    return y
+        s = p.shared
+        s_split = s.tp is not None and s.tp.ff
+        ys = swiglu(sh.copy_to(x) if s_split and not tp.experts else x, s.w_gate, s.w_up,
+                    s.w_down)
+        (split if s_split else whole).append(ys)
+    y = sh.all_reduce(sum(split)) if split else 0
+    for part in whole:
+        y = y + part
+    return shard(y, "batch", None, None)
 
 
 def apply_moe(cfg: ArchConfig, p: MoE, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -19,13 +19,18 @@ entropy, and ``remat`` recomputes each layer in the backward, where
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..distributed import sharding as sh
+from ..distributed.sharding import shard
 from . import moe
-from .attention import Attention, decode_attention_step, prefill_attention
-from .layers import SwiGLU, cross_entropy, normal_init, remat as _remat, rms_norm, unembed
+from .attention import Attention, decode_attention_step, prefill_attention, store_prefill_kv
+from .layers import (SwiGLU, cross_entropy, embed, normal_init, remat as _remat, rms_norm,
+                     unembed)
 
 
 class Block(nn.Module):
@@ -51,6 +56,8 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """The parameters of one model (``repro``'s ``params`` dict)."""
+
+    tp: Optional[sh.TensorParallel] = None  # set by launch.shardings.place_params
 
     def __init__(self, cfg: ArchConfig, device: torch.device) -> None:
         super().__init__()
@@ -124,7 +131,7 @@ def _layer_decode(cfg: ArchConfig, p: Block, x, k_cache, v_cache, lengths, windo
 
 
 def _embed(params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    return params.embed[tokens.long()]
+    return shard(embed(params.embed, tokens, params.tp), "batch", "seq", None)
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -150,6 +157,8 @@ def forward(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, *,
         x, layer_aux = _remat(body, x) if remat else body(x)
         aux = aux + layer_aux
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    if params.tp is not None and params.tp.out_vocab:
+        x = sh.copy_to(x)
     return unembed(x, params.out_proj()), aux
 
 
@@ -158,7 +167,7 @@ def loss_fn(cfg: ArchConfig, params: Transformer, batch, *, remat: bool = True,
     """batch: {"tokens", "labels"} (B, S). Returns (ce + aux, {"ce", "nll",
     "aux"}), 0-dim f32 tensors."""
     logits, aux = forward(cfg, params, batch["tokens"], remat=remat, use_kernel=use_kernel)
-    ce, nll = cross_entropy(logits, batch["labels"])
+    ce, nll = cross_entropy(logits, batch["labels"], tp=params.tp)
     return ce + aux, {"ce": ce, "nll": nll, "aux": aux}
 
 
@@ -183,6 +192,9 @@ def prefill(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, cache, *
     B, S = tokens.shape
     window = cfg.sliding_window
     S_c = cache["k"].shape[3]
+    tp = params.layers[0].attn.tp if len(params.layers) else None
+    if tp is not None and tp.cache_dim == 2:  # this rank's slice of the rows
+        S_c *= sh.mesh_size(sh.current_mesh(), sh.MODEL_AXIS)
     if window is None and S > S_c:
         # repro returns a cache grown to S rows here; its next decode step
         # then writes row S of an S-row cache, which dynamic_update_slice
@@ -198,8 +210,8 @@ def prefill(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, cache, *
             shift = (S - S_c) % S_c
             k = torch.roll(k[:, :, -S_c:], shifts=shift, dims=2)
             v = torch.roll(v[:, :, -S_c:], shifts=shift, dims=2)
-        cache["k"][i, :, :, : k.shape[2]] = k
-        cache["v"][i, :, :, : v.shape[2]] = v
+        store_prefill_kv(cache["k"][i], k, p.attn.tp)
+        store_prefill_kv(cache["v"][i], v, p.attn.tp)
     x = rms_norm(x[:, -1:, :], params.final_norm, cfg.norm_eps)
     logits = unembed(x, params.out_proj())
     cache["lengths"].fill_(S)

@@ -9,10 +9,12 @@ Each group of the plan (``_plan``) is a ``ModuleList`` of mLSTM blocks or
 one sLSTM block, in place of ``repro``'s stacked mLSTM tree.
 
 No TPU kernel is on this path: everything computes in plain PyTorch ops
-(:mod:`repro_torch.models.ssm`). ``repro`` runs the sLSTM cell under
-``shard_map`` only when a mesh is active and ``SLSTM_SHARD_MAP`` is set
-(off by default; multi-device work belongs to ROADMAP M11); the port calls
-``slstm_scan`` directly, which is what the reference's default computes.
+(:mod:`repro_torch.models.ssm`). The sLSTM cell calls ``slstm_scan`` on
+the batch it is given. ``repro`` runs the cell under ``shard_map`` when its
+``SLSTM_SHARD_MAP`` is set (each data rank on its batch block, ``R``
+replicated, no collective); the port's local program on a mesh already
+holds the rank's batch block, so it is that branch as it stands, and the
+port has no such knob.
 
 The recurrent state is O(1) in ``max_len`` and is held as a flat dict of
 tensors, named per plan group ``gi``: an mLSTM group's ``g{gi}.C`` (count, B,
@@ -35,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..distributed import sharding as sh
 from .layers import cross_entropy, normal_init, parameter, remat as _remat, rms_norm, unembed
 from .ssm import mlstm_chunked, mlstm_init_state, mlstm_step, slstm_init_state, slstm_scan
 
@@ -163,6 +166,7 @@ def _mlstm_qkv(cfg: ArchConfig, p: MLSTMBlock, x):
     d_inner, H, P = _dims(cfg)
     u = rms_norm(x, p.ln, cfg.norm_eps) @ p.w_up
     a, z = torch.chunk(u, 2, dim=-1)
+    a = sh.shard(a, "batch", None, "ff")
     B, S = x.shape[:2]
     ah = a.reshape(B, S, H, P)
     q = torch.einsum("bshp,hpr->bshr", ah, p.wq)
@@ -211,7 +215,7 @@ def _run(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor, cache=None, remat
     """The stack over ``tokens`` from a fresh state; with ``cache``, each
     block's final state is copied into it; ``remat`` recomputes each mLSTM
     block in the backward. Returns the last layer's output."""
-    x = params.embed[tokens.long()]
+    x = sh.shard(params.embed[tokens.long()], "batch", "seq", None)
     for gi, group in enumerate(params.groups):
         if isinstance(group, SLSTMBlock):
             x, state = slstm_block(cfg, group, x)
@@ -293,7 +297,7 @@ def decode_step(cfg: ArchConfig, params: XLSTM, cache, tokens: torch.Tensor, *,
                 use_kernel: bool = True):
     """One greedy decode step. tokens: (B, 1) int32, the current token.
     Returns (logits (B, 1, V), cache updated in place)."""
-    x = params.embed[tokens.long()]
+    x = sh.shard(params.embed[tokens.long()], "batch", "seq", None)
     for gi, group in enumerate(params.groups):
         if isinstance(group, SLSTMBlock):
             names = [f"g{gi}.{name}" for name in SLSTM_STATE]

@@ -1,0 +1,152 @@
+"""The port's multi-rank local program against ``repro``'s unsharded numbers,
+on gloo process groups of 2 and 4 ranks on the CPU.
+
+This process computes the reference with JAX (smoke configs, f32) and hands
+it to the ranks as files; the ranks (``tests/_torch_dist_workers.py``, no
+JAX) run the port's placed models on ``(data, model)`` meshes of shape
+``(1, m)`` (tensor parallel: heads, ff columns, experts and vocab split;
+with 4 ranks llama's cache splits over head_dim, with 2 over kv heads) and
+``(2, 2)`` (data and tensor parallel at once), and hold:
+
+- prefill logits and 8 greedy decode steps of llama3.2-1b and
+  granite-moe-1b-a400m: rtol 1e-5, atol 1e-5 of the largest |logit|,
+  tokens identical;
+- ``DECODE_ATTN_MODE = "shard_map"`` over a length-sharded cache (a slice
+  with no valid row, one straddling ``valid``, and a window ring): the step
+  and the caches equal ``repro``'s local ``decode_attention_step``;
+- llama3.2-1b on (1, 4) placed as on the card (``shardings._whole_kv_rows``
+  patched true): its cache along its length in place of head_dim, every
+  step through the length-sharded flash-decode, the same logits and tokens;
+- the sLSTM cell on each data rank's batch block (the local program is
+  ``repro``'s shard_map branch): ``repro``'s ``slstm_scan``;
+- ``CACHE_UPDATE_MODE = "onehot"``: the scatter update's logits, bitwise.
+
+Each mesh's ranks are spawned once, with a join timeout of their own.
+"""
+import json
+import tempfile
+import time
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+import _torch_dist_workers as workers
+from repro.configs.registry import get_smoke_config as jax_smoke_config
+from repro.models import attention as jattn
+from repro.models.model import build_model as jax_build_model
+from repro.models.ssm import slstm_scan as jax_slstm_scan
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.models.convert import load_jax_params
+from repro_torch.models.model import build_model
+
+ARCHS = ("llama3.2-1b", "granite-moe-1b-a400m")
+B, S, MAX_LEN = 4, 10, 32
+JOIN_TIMEOUT_S = 120
+
+DECODE = [f"decode[{a}]" for a in ARCHS]
+SHARD_MAP = ["shard_map_decode[prefix]", "shard_map_decode[window]"]
+MESHES = {
+    (1, 2): DECODE + ["onehot_equals_scatter"] + SHARD_MAP,
+    (1, 4): DECODE + ["decode_whole_rows[llama3.2-1b]"] + SHARD_MAP,
+    (2, 2): DECODE + ["slstm_branch"],
+}
+
+
+def _np(shape, seed, scale=1.0):
+    return (np.random.RandomState(seed).randn(*shape) * scale).astype(np.float32)
+
+
+def _write_model_refs(d: Path, arch: str) -> None:
+    jcfg = jax_smoke_config(arch)
+    jm = jax_build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = build_model(get_smoke_config(arch), device="cpu")
+    params = load_jax_params(tm.init(1), jax.tree_util.tree_map(np.asarray, jp))
+    torch.save(params.state_dict(), d / f"{arch}.pt")
+    tokens = np.random.RandomState(7).randint(0, jcfg.vocab, (B, S)).astype(np.int32)
+    logits, cache = jm.prefill(jp, {"tokens": jnp.asarray(tokens)}, jm.init_cache(B, MAX_LEN))
+    prefill = np.asarray(logits)[:, -1:]
+    tok = np.argmax(prefill[:, 0], axis=-1).astype(np.int32)
+    steps, toks = [], []
+    for _ in range(workers.STEPS):
+        toks.append(tok)
+        logits, cache = jm.decode_step(jp, cache, jnp.asarray(tok[:, None]))
+        steps.append(np.asarray(logits))
+        tok = np.argmax(steps[-1][:, 0], axis=-1).astype(np.int32)
+    np.savez(d / f"{arch}.npz", tokens=tokens, max_len=MAX_LEN, prefill=prefill,
+             steps=np.stack(steps), tokens_out=np.stack(toks))
+
+
+def _write_attention_ref(d: Path, case: str) -> None:
+    """One decode step of a 64-row cache: valid prefixes 11 and 41 (with 2
+    or 4 slices: one slice past both prefixes, one straddling each), or a
+    ring of window 64 written at rows 6 and 2 after wrapping."""
+    dm, H, K, hd, rows = 64, 4, 2, 32, 64
+    jp = jattn.init_attention(jax.random.PRNGKey(3), dm, H, K, hd, False, jnp.float32)
+    lengths = np.array([10, 40] if case == "prefix" else [70, 130], dtype=np.int32)
+    window = 0 if case == "prefix" else rows
+    x, kc, vc = _np((2, 1, dm), 11), _np((2, K, rows, hd), 12), _np((2, K, rows, hd), 13)
+    y, k_new, v_new = jattn.decode_attention_step(
+        jp, jnp.asarray(x), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(lengths),
+        rope_theta=1e4, eps=1e-5, window=window or None)
+    np.savez(d / f"attn_{case}.npz", wq=np.asarray(jp.wq), wk=np.asarray(jp.wk),
+             wv=np.asarray(jp.wv), wo=np.asarray(jp.wo), x=x, k_cache=kc, v_cache=vc,
+             lengths=lengths, window=window, y=np.asarray(y), k_new=np.asarray(k_new),
+             v_new=np.asarray(v_new))
+
+
+def _write_slstm_ref(d: Path) -> None:
+    xg, R = _np((B, 6, 4, 2, 8), 21), _np((4, 2, 8, 8), 22, 0.3)
+    h, state = jax_slstm_scan(jnp.asarray(xg), jnp.asarray(R))
+    np.savez(d / "slstm.npz", xg=xg, R=R, h=np.asarray(h),
+             **{f"s{j}": np.asarray(s) for j, s in enumerate(state)})
+
+
+@pytest.fixture(scope="module")
+def refs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("dist_refs")
+    for arch in ARCHS:
+        _write_model_refs(d, arch)
+    for case in ("prefix", "window"):
+        _write_attention_ref(d, case)
+    _write_slstm_ref(d)
+    return d
+
+
+_RESULTS: dict = {}
+
+
+def _spawn(refs_dir: Path, shape: tuple[int, int]) -> list[dict]:
+    """Run every case of ``shape``'s mesh on its ranks once; per-rank results."""
+    if shape in _RESULTS:
+        return _RESULTS[shape]
+    world = shape[0] * shape[1]
+    d = Path(tempfile.mkdtemp(dir=refs_dir))
+    for f in refs_dir.iterdir():
+        if f.is_file():
+            (d / f.name).symlink_to(f)
+    ctx = mp.start_processes(workers.run, args=(world, shape, MESHES[shape], str(d)),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + JOIN_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"ranks of mesh {shape} did not finish in {JOIN_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    _RESULTS[shape] = [json.loads((d / f"r{r}.json").read_text()) for r in range(world)]
+    return _RESULTS[shape]
+
+
+@pytest.mark.parametrize("shape,case", [(s, c) for s, cases in MESHES.items() for c in cases],
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_ranks_match_reference(refs, shape, case):
+    for rank, res in enumerate(_spawn(refs, shape)):
+        assert res[case] == "ok", f"rank {rank} of mesh {shape}:\n{res[case]}"

@@ -107,7 +107,9 @@ def test_scans_cover_every_module_of_the_port():
     scanned = {p.relative_to(PORT).as_posix() for p in _scanned_files() if p.is_relative_to(PORT)}
     new = {"models/encdec.py", "serving/pipeline.py", "models/ssm.py", "models/hybrid.py",
            "models/xlstm.py", "optim/adamw.py", "optim/schedule.py", "train/loop.py",
-           "data/pipeline.py", "checkpoint/ckpt.py", "launch/train.py"}
+           "data/pipeline.py", "checkpoint/ckpt.py", "launch/train.py",
+           "distributed/sharding.py", "launch/mesh.py", "launch/shardings.py",
+           "launch/specs.py", "launch/serve.py", "launch/dryrun.py", "roofline/count.py"}
     assert new <= scanned
     mods = _port_modules()
     assert {"repro_torch." + m[:-3].replace("/", ".") for m in new} <= set(mods)
@@ -140,6 +142,10 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
         train(cfg, iter(TokenStream(cfg.vocab, 1, 8)), TrainConfig(), steps=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MinosServingEngine(cfg, MinosPolicy(elysium_threshold=200.0), Pricing.tpu_chip_seconds(4))
+    from repro_torch.launch import serve
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--requests", "1"])
     # asking for the CPU is the way to run there
     for arch in ("llama3.2-1b", "zamba2-1.2b", "xlstm-1.3b"):
         assert build_model(get_smoke_config(arch), device="cpu").device.type == "cpu"

@@ -308,3 +308,67 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         flash_attention(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention(q[:, :, :1], q, q, torch.tensor([1], dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K3's log-sum-exp form: the local half of the length-sharded flash-decode
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("batch,qh,kvh,S,d,lengths", [
+    (2, 4, 2, 96, 64, [96, 37]),
+    (3, 8, 2, 200, 128, [1, 200, 64]),
+    (1, 6, 6, 50, 64, [0]),  # length 0: -inf, the output pinned as before
+])
+def test_decode_plain_lse_matches_oracle_scores(batch, qh, kvh, S, d, lengths):
+    """The plain version's log-sum-exp is ``logsumexp`` of the reference
+    oracle's scaled scores over each row's valid prefix; its output is the
+    output without the log-sum-exp."""
+    q, k, v = _np((batch, qh, 1, d), 0), _np((batch, kvh, S, d), 1), _np((batch, kvh, S, d), 2)
+    lens = np.array(lengths, dtype=np.int32)
+    tq, tk, tv, tl = map(torch.tensor, (q, k, v, lens))
+    out, lse = ref.decode_attention_ref(tq, tk, tv, tl, return_lse=True)
+    assert torch.equal(out, ref.decode_attention_ref(tq, tk, tv, tl))
+    qg = jnp.asarray(q).reshape(batch, kvh, qh // kvh, d)
+    s = jnp.einsum("bkgd,bksd->bkgs", qg, jnp.asarray(k)) / np.sqrt(d)
+    for b, n in enumerate(lengths):
+        got = lse[b].numpy()
+        if n == 0:
+            assert np.all(got == -np.inf)
+            continue
+        want = np.asarray(jnp.log(jnp.sum(jnp.exp(s[b, ..., :n] - s[b, ..., :n].max(-1, keepdims=True)),
+                                          -1)) + s[b, ..., :n].max(-1)).reshape(qh)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_decode_lse_slices_merge_to_the_whole():
+    """Outputs and log-sum-exps of slices of one cache, merged by the
+    reference's algebra (max, weights, weighted sum), equal the unsliced
+    output: an empty slice has weight 0."""
+    batch, qh, kvh, S, d = 2, 4, 2, 128, 64
+    q, k, v = _np((batch, qh, 1, d), 5), _np((batch, kvh, S, d), 6), _np((batch, kvh, S, d), 7)
+    tq, tk, tv = map(torch.tensor, (q, k, v))
+    valid = torch.tensor([40, 100], dtype=torch.int32)
+    whole = ref.decode_attention_ref(tq, tk, tv, valid)
+    parts = []
+    for start in range(0, S, S // 4):
+        n = (valid - start).clamp(0, S // 4).to(torch.int32)
+        parts.append(ref.decode_attention_ref(tq, tk[:, :, start:start + S // 4].contiguous(),
+                                              tv[:, :, start:start + S // 4].contiguous(), n,
+                                              return_lse=True))
+    lse = torch.stack([p[1] for p in parts])
+    m = lse.max(dim=0).values
+    w = torch.where(lse > -np.inf, torch.exp(lse - m), torch.zeros_like(lse))
+    merged = sum(w_i[:, :, None, None] * o for w_i, (o, _) in zip(w, parts)) / w.sum(0)[:, :, None, None]
+    torch.testing.assert_close(merged, whole, rtol=1e-5, atol=1e-6)
+
+
+def test_dispatcher_counts_the_lse_form_apart():
+    ops.reset_counters()
+    q = torch.ones(1, 2, 4, 64)
+    out, lse = ops.decode_attention(q[:, :, :1], q, q, torch.tensor([2], dtype=torch.int32),
+                                    return_lse=True)
+    assert lse.shape == (1, 2) and lse.dtype == torch.float32
+    assert ops.plain["decode_attention"] == 0 and ops.form_plain["decode_attention_lse"] == 1
+    ops.reset_counters()
+    assert ops.form_plain["decode_attention_lse"] == 0

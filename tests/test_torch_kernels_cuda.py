@@ -206,6 +206,27 @@ def test_decode_kernel_in_cuda_graph_reads_lengths_on_device():
         assert torch.equal(out, ops.decode_attention(q, k, v, lens))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,qh,kvh,S,d,lengths", DECODE_CASES + [(2, 32, 8, 128, 64, [0, 77])])
+def test_decode_kernel_lse_form_matches_plain(batch, qh, kvh, S, d, lengths, dtype):
+    """K3's log-sum-exp form: the same output as without it, and each head's
+    log-sum-exp within 1e-4 of the plain version's (f32 on both sides; -inf
+    at length 0); launches counted as ``decode_attention_lse``."""
+    q = _rand((batch, qh, 1, d), dtype, 0)
+    k, v = _rand((batch, kvh, S, d), dtype, 1), _rand((batch, kvh, S, d), dtype, 2)
+    if lengths is None:
+        lengths = np.random.RandomState(3).randint(1, S + 1, size=batch)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    ops.reset_counters()
+    out, lse = ops.decode_attention(q, k, v, lens, return_lse=True)
+    assert ops.form_launches["decode_attention_lse"] == 1 and ops.launches["decode_attention"] == 0
+    assert torch.equal(out, ops.decode_attention(q, k, v, lens))
+    _, want = ref.decode_attention_ref(q, k, v, lens, return_lse=True)
+    empty = lens == 0
+    assert torch.all(lse[empty] == float("-inf"))
+    torch.testing.assert_close(lse[~empty], want[~empty], rtol=1e-4, atol=1e-4)
+
+
 def test_decode_kernel_zeros_at_length_zero():
     q = _rand((2, 4, 1, 64), "float32", 0)
     k, v = _rand((2, 2, 256, 64), "float32", 1), _rand((2, 2, 256, 64), "float32", 2)
