@@ -155,12 +155,22 @@ Run from the root of a checkout. It imports ``src/repro_torch`` (never
    row to unsharded K3 and to the plain version in bf16 and f32, each
    slice's log-sum-exp within 1e-4 of the plain one's, the slices' caches
    bitwise the written cache; (d) the port's dry-run of
-   llama3.2-1b at its four shapes, and decode_32k with the length-sharded
-   flash-decode, on the 16x16 fake mesh (a child process: host work, no
-   device): per-device FLOPs, HBM bytes, collective bytes by kind and the
-   H100 data-sheet roofline terms; (e) K3 with and without its log-sum-exp
-   beside its bound, and one request's eager decode step unsharded and
-   sharded in turns, then each under ``torch.profiler`` (host time by op).
+   llama3.2-1b at its four shapes, decode_32k with the length-sharded
+   flash-decode, and train_4k under each of ``repro``'s hillclimb knobs
+   (dp-only, fsdp, accum-steps 2, seq-parallel), on the 16x16 fake mesh (a
+   child process: host work, no device): per-device FLOPs, HBM bytes,
+   collective bytes by kind and the H100 data-sheet roofline terms, and
+   each knob's argument, temp and wire bytes beside the baseline's; (e) K3
+   with and without its log-sum-exp beside its bound, one request's eager
+   decode step unsharded and sharded in turns, then each under
+   ``torch.profiler`` (host time by op), and the same request's captured
+   step unsharded and sharded in turns (ms a step, kernels a step, idle
+   share); (f) 12b's requests through ``prefill_jit`` and ``decode_tokens``
+   on the mesh (CUDA graphs of the placed model on its placed static
+   cache), tokens bitwise the unsharded captured path's, K2 once a layer a
+   request and K3's log-sum-exp form once a layer a step, counted by the
+   replays, no plain call, no collective, and one decode graph for the
+   sharded bucket apart from the unsharded one's.
 
 It exits non-zero, printing no result, if there is no CUDA device or any
 phase fails. Its last two lines are the card's ``nvidia-smi`` name and power
@@ -2564,9 +2574,13 @@ def checkpoint_round_trip(cfg, seed, save, restore):
 # ---------------------------------------------------------------------------
 SHARD_SLICES = (4, 8)   # 12c: slices of one cache, each with its global offset
 DRYRUN_ARCH = "llama3.2-1b"
-# 12d: (shape, --decode-attn) on the 16x16 fake mesh
-DRYRUN_COMBOS = [("train_4k", "local"), ("prefill_32k", "local"), ("decode_32k", "local"),
-                 ("long_500k", "local"), ("decode_32k", "shard_map")]
+# 12d: (shape, --decode-attn, the hillclimb knobs) on the 16x16 fake mesh
+DRYRUN_COMBOS = [("train_4k", "local", {}), ("prefill_32k", "local", {}),
+                 ("decode_32k", "local", {}), ("long_500k", "local", {}),
+                 ("decode_32k", "shard_map", {}),
+                 ("train_4k", "local", {"dp_only": True}), ("train_4k", "local", {"fsdp": True}),
+                 ("train_4k", "local", {"accum_steps": 2}),
+                 ("train_4k", "local", {"seq_parallel": True})]
 
 
 def launcher_phase(card_str):
@@ -2685,6 +2699,7 @@ def sharded_serving_phase(args, card_str, ServeRequest):
     from repro_torch.models import attention
     from repro_torch.models.layers import gather_logits
     from repro_torch.models.model import build_model, greedy_token
+    from repro_torch.serving.backend import _bucket
 
     cfg = get_config("llama3.2-1b")
     steps, L = args.new_tokens, cfg.n_layers
@@ -2709,10 +2724,23 @@ def sharded_serving_phase(args, card_str, ServeRequest):
             tok = greedy_token(logits)
         return torch.cat(out, 1), torch.cat(seen, 1)
 
+    # 12f's bucket: every request's cache of ``rows`` rows, so that one
+    # decode graph serves them all
+    rows = _bucket(max(len(r.prompt) for r in reqs) + steps, base=8)
+
+    def run_captured(req, cache):
+        """``prefill_jit`` and ``decode_tokens`` (CUDA graphs): the first
+        token and ``steps`` more."""
+        logits, _ = model.prefill_jit(params, {"tokens": prompt_of(req)}, cache)
+        tok = greedy_token(gather_logits(params, logits))
+        out, _ = model.decode_tokens(params, cache, tok, steps)
+        return torch.cat([tok, out], 1)
+
     t0 = time.perf_counter()
     want = [run(r, False) for r in reqs]
     torch.cuda.synchronize()
     t_plain = time.perf_counter() - t0
+    want_graph = [run_captured(r, model.static_cache(1, rows)) for r in reqs]
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
                             world_size=1)
     knobs = (attention.DECODE_ATTN_MODE, shardings.FORCE_SEQ_SHARD_CACHE)
@@ -2756,6 +2784,9 @@ def sharded_serving_phase(args, card_str, ServeRequest):
                   f"sharded, {t_plain:.2f} s unsharded ({card_str})")
             if not same or err > BF16_LOGIT_LIMIT:
                 raise PhaseError("the sharded decode disagrees with the unsharded path")
+
+            captured_sharded(model, params, reqs, steps, rows, want, want_graph, run_captured,
+                             card_str)
 
             # 12e: one request's eager decode step, unsharded and sharded in turns
             req = max(reqs, key=lambda r: len(r.prompt))
@@ -2803,6 +2834,7 @@ def sharded_serving_phase(args, card_str, ServeRequest):
             for sharded in (False, True):
                 print(f"[12e] {'sharded' if sharded else 'unsharded'} step under torch.profiler: "
                       f"{step_ms(sharded, profile=True)} ({card_str})")
+            captured_step_turns(model, params, cfg, mesh, prompt, steps, rows, turns, card_str)
         return counts["form_launches"]["decode_attention_lse"]
     finally:
         attention.DECODE_ATTN_MODE, shardings.FORCE_SEQ_SHARD_CACHE = knobs
@@ -2810,6 +2842,128 @@ def sharded_serving_phase(args, card_str, ServeRequest):
             if hasattr(m, "tp") and "tp" in vars(m):
                 del m.tp
         dist.destroy_process_group()
+
+
+def captured_sharded(model, params, reqs, steps, rows, want, want_graph, run_captured,
+                     card_str):
+    """12f: the requests of 12b through ``prefill_jit`` and ``decode_tokens``
+    on the mesh (CUDA graphs of the placed model, on its placed static
+    cache), against the unsharded captured path (``want_graph``, captured
+    before the mesh existed): tokens bitwise, launches exact and counted by
+    replays, no collective, and the sharded decode graph captured under a
+    key of its own (at size 1 the placement keeps every weight tensor)."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import _build
+
+    L, n = model.cfg.n_layers, len(reqs)
+    before = dict(model.graph_stats)
+    decode_before = [k for k in model.graphs.graphs if k[0] == "decode"]
+    static = model.static_cache(1, rows, params)
+    _build.reset_counters()
+    sh.reset_comm_counters()
+    t0 = time.perf_counter()
+    got = [run_captured(r, static) for r in reqs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"launches": dict(_build.launches), "plain": dict(_build.plain),
+              "form_launches": dict(_build.form_launches), "form_plain": dict(_build.form_plain),
+              "collectives": dict(sh.comm_counts)}
+    print(json.dumps({"counters": {"path": "captured sharded llama3.2-1b", **counts}}))
+    decode_keys = [k for k in model.graphs.graphs if k[0] == "decode"]
+    new = {k: v - before[k] for k, v in model.graph_stats.items()}
+    same = all(torch.equal(a, b) for a, b in zip(got, want_graph))
+    eager_same = sum(torch.equal(a[:, :steps], b[0]) for a, b in zip(want_graph, want))
+    expected = {"launches": {"matmul": 0, "flash_attention": L * n, "decode_attention": 0},
+                "plain": {k: 0 for k in _build.KERNELS},
+                "form_launches": {"decode_attention_lse": L * steps * n},
+                "form_plain": {"decode_attention_lse": 0}}
+    print(f"[12f] llama3.2-1b full width ({L} layers, bf16) on the (1, 1) mesh, DECODE_ATTN_MODE "
+          f"shard_map, captured: {n} requests through prefill_jit and decode_tokens ({steps} "
+          f"greedy steps, one {rows}-row placed static cache); tokens identical to the "
+          f"unsharded captured path: {same} (unsharded captured against unsharded eager: "
+          f"{eager_same} of {n}); K2 {counts['launches']['flash_attention']}, K3 log-sum-exp "
+          f"form {counts['form_launches']['decode_attention_lse']} (= {L} x {steps} x {n}, "
+          f"counted by replays), K3 {counts['launches']['decode_attention']}, plain "
+          f"{sum(counts['plain'].values()) + sum(counts['form_plain'].values())}, collectives "
+          f"{sum(counts['collectives'].values())}; graphs: {new['captures']} captured, "
+          f"{new['replays']} replayed, {new['dropped']} dropped; decode graphs {len(decode_keys)} "
+          f"(unsharded bucket {decode_before[0][:4] if decode_before else None}, sharded "
+          f"{[k for k in decode_keys if k not in decode_before]}); wall {wall:.2f} s "
+          f"({card_str})")
+    if not same:
+        raise PhaseError("the captured sharded decode disagrees with the unsharded captured path")
+    if ({k: counts[k] for k in expected} != expected
+            or sum(counts["collectives"].values()) != 0):
+        raise PhaseError(f"captured sharded counts {counts}; expected {expected}, no collective")
+    if (len(decode_before) != 1 or len(decode_keys) != 2 or new["dropped"] != 0
+            or len({k[:4] for k in decode_keys}) != 1):
+        raise PhaseError(f"expected one decode graph for each of the unsharded and the sharded "
+                         f"bucket, none dropped: before {decode_before}, after {decode_keys}, "
+                         f"stats {new}")
+
+
+def captured_step_turns(model, params, cfg, mesh, prompt, steps, rows, eager_turns, card_str):
+    """12e: one request's captured decode step, unsharded and sharded in
+    turns (the unsharded program is the placed model with its ``tp``
+    taken off, in the mesh: a graph of its own): ms a step between CUDA
+    events around the replayed loop, and under ``torch.profiler`` kernels a
+    step and their time; the idle share is phase 6's, 1 - that kernel time
+    / the unprofiled wall. Tracing lengthens the kernels a little and
+    spreads a replay's launches much more, so a graph whose kernels run back
+    to back reads a little below 0, and one taken from the profiled span
+    alone would read gaps the tracing made. Printed beside 12e's eager
+    steps."""
+    from repro_torch.launch import shardings
+    from repro_torch.models import attention
+    from repro_torch.models.layers import gather_logits
+    from repro_torch.models.model import greedy_token
+
+    placed = {m: m.tp for m in params.modules() if "tp" in vars(m)}
+
+    def turn(sharded):
+        if not sharded:
+            for m in placed:
+                m.tp = None
+        attention.DECODE_ATTN_MODE = "shard_map" if sharded else "local"
+        try:
+            cache = model.static_cache(1, rows, params)
+            logits, _ = model.prefill_jit(params, {"tokens": prompt}, cache)
+            tok = greedy_token(gather_logits(params, logits))
+            filled = prompt.shape[1]
+            model.decode_tokens(params, cache, tok, steps)  # captured here at a first turn
+            out = {}
+            for label in ("timed", "profiled"):
+                cache["lengths"].fill_(filled)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start.record()
+                if label == "timed":
+                    model.decode_tokens(params, cache, tok, steps)
+                    end.record()
+                    end.synchronize()
+                    out["wall"] = (time.perf_counter() - t0) * 1e3 / steps
+                    out["ms"] = start.elapsed_time(end) / steps
+                else:
+                    kernels, _, busy, _, _ = profiled(
+                        lambda: model.decode_tokens(params, cache, tok, steps))
+                    out["kernels"], out["busy"] = kernels / steps, busy / steps
+            return out
+        finally:
+            for m, tp in placed.items():
+                m.tp = tp
+            attention.DECODE_ATTN_MODE = "shard_map"
+
+    turns = [("unsharded", turn(False)), ("sharded", turn(True)), ("sharded", turn(True)),
+             ("unsharded", turn(False))]
+    print(f"[12e] captured decode step of one {prompt.shape[1]}-token request ({steps}-step "
+          f"graph, {rows}-row cache), in turns: " + "; ".join(
+              f"{k} {t['ms']:.4f} ms a step between CUDA events ({t['wall']:.4f} ms host wall), "
+              f"{t['kernels']:.1f} kernels and {t['busy']:.4f} ms of kernels a step, idle share "
+              f"{1 - t['busy'] / t['wall']:.3f}" for k, t in turns)
+          + " | eager, 12e above: " + ", ".join(f"{k} {v:.3f} ms" for k, v in eager_turns)
+          + f" ({card_str})")
 
 
 def host_profile(fn, n_steps: int, top: int = 8) -> str:
@@ -2841,15 +2995,19 @@ _DRYRUN = r"""
 import json, sys
 from repro_torch.launch.dryrun import run_one
 combos = json.loads(sys.argv[1])
-out = [run_one(sys.argv[2], s, decode_attn=a, tag="" if a == "local" else a) for s, a in combos]
+out = [run_one(sys.argv[2], s, decode_attn=a, tag="_".join(([] if a == "local" else [a])
+                                                            + sorted(k)), **k)
+       for s, a, k in combos]
 print(json.dumps(out))
 """
 
 
 def dryrun_phase(card_str):
     """12d: the port's dry-run of llama3.2-1b at its four shapes on the 16x16
-    fake mesh, and decode_32k with the length-sharded flash-decode: host
-    work in a child process (a fake process group is process-global)."""
+    fake mesh, decode_32k with the length-sharded flash-decode, and train_4k
+    under each of ``repro``'s hillclimb knobs (``--dp-only``, ``--fsdp``,
+    ``--accum-steps 2``, ``--seq-parallel``) beside the baseline: host work
+    in a child process (a fake process group is process-global)."""
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", _DRYRUN, json.dumps(DRYRUN_COMBOS), DRYRUN_ARCH],
@@ -2860,13 +3018,25 @@ def dryrun_phase(card_str):
         if line.startswith(("OK", "SKIP", "FAIL")):
             print(f"[12d] {line}")
     results = json.loads(res.stdout.strip().splitlines()[-1])
+    failed = [f"{r['arch']} x {r['shape']} [{r.get('tag', '')}]: {r.get('error', r['status'])}"
+              for r in results if r["status"] != "ok"]
+    if failed:
+        raise PhaseError("dry-run failed: " + "; ".join(failed))
+    base = None
     for r in results:
-        if r["status"] != "ok":
-            raise PhaseError(f"dry-run {r['arch']} x {r['shape']}: {r['status']}")
         f = r["roofline"]
+        knob = r["tag"] if r["tag"] not in ("", "shard_map") else r["opts"]["decode_attn"]
         coll = ", ".join(f"{k} {f['collective_counts'][k]} ({v / 1e6:.3f} MB)"
                          for k, v in f["collective_bytes_by_kind"].items() if f["collective_counts"][k])
-        print(f"[12d] {r['arch']} x {r['shape']} [{r['opts']['decode_attn']}] per device: "
+        if r["shape"] == "train_4k":
+            m = r["memory"]
+            row = (m["argument_bytes"], m["temp_bytes"], f["collective_bytes_per_dev"])
+            base = base or row
+            print(f"[12d] {r['arch']} x train_4k [{knob}] per device: argument "
+                  f"{row[0] / 2**30:.3f} GiB, temp {row[1] / 2**30:.3f} GiB, wire "
+                  f"{row[2] / 1e9:.4f} GB; against the baseline x{row[0] / base[0]:.3f}, "
+                  f"x{row[1] / base[1]:.3f}, x{row[2] / base[2]:.3f}")
+        print(f"[12d] {r['arch']} x {r['shape']} [{knob}] per device: "
               f"{f['flops_per_dev']:.4e} FLOP, {f['hbm_bytes_per_dev']:.4e} HBM bytes "
               f"(estimate), {f['collective_bytes_per_dev']:.4e} wire bytes ({coll or 'none'}); "
               f"H100 SXM5 data-sheet terms compute {f['t_compute_s']:.4e} s, memory "

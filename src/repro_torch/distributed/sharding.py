@@ -27,10 +27,14 @@ the models issue their collectives through :func:`all_reduce` and
 :func:`all_gather`, which count them (``comm_counts``, ``comm_bytes``: wire
 bytes by the reference's algorithm factors). So :func:`shard` acts only
 where the reference's constraint changes a layout that the placement does not
-give: on ``"expert"`` and ``"seq"`` it takes the rank's block of a dim that
-is replicated there. On every other axis the local tensor already has the
-layout (the launcher splits the batch; the placed weights give local heads,
-ff columns and vocab rows), and it returns its input.
+give: on ``"expert"`` it takes the rank's block of a dim that is replicated
+there. On every other axis the local tensor already has the layout (the
+launcher splits the batch; the placed weights give local heads, ff columns
+and vocab rows), and it returns its input. ``"seq"`` is no exception: where
+the rules map it to the model axis (sequence parallelism), the transformer
+and encoder-decoder programs split their residual stream themselves
+(:func:`sequence_parallel`, :func:`enter`, :func:`leave`), and the recurrent
+families keep their whole sequence.
 
 A collective over an axis of size 1 moves nothing and is skipped (not
 counted).
@@ -38,8 +42,15 @@ counted).
 Under autograd the collectives are Megatron's operators: a sum
 :func:`all_reduce` passes its gradient through unchanged, :func:`copy_to`
 (the identity at the entry of a split region) all-reduces its gradient, and
-:func:`all_gather`'s gradient is the rank's block. Without grad mode they
-are plain calls.
+:func:`all_gather`'s gradient is the rank's block. Korthikanti et al.'s pair
+for a sequence-parallel stream: ``all_gather(..., sum_grad=True)``, whose
+gradient is reduce-scattered, and :func:`reduce_scatter`, whose gradient is
+all-gathered. :func:`data_mean` averages over the batch axes. Without grad
+mode they are plain calls.
+
+FSDP (:func:`gathered`): a module that the placement split over the data
+axes lists those parameters in ``module.fsdp`` (field -> (dim, axes)), and a
+program gathers them for the region that reads them.
 """
 from __future__ import annotations
 
@@ -68,7 +79,7 @@ DEFAULT_RULES: dict[str, Entry] = {
 }
 
 # logical axes whose layout the local program does not already have
-_ACTING = ("seq", "expert")
+_ACTING = ("expert",)
 
 MODEL_AXIS = "model"
 
@@ -234,11 +245,19 @@ def local_block(x: torch.Tensor, dim: int, entry: Entry) -> torch.Tensor:
     return x.narrow(dim, coordinate(entry) * size, size)
 
 
+def block(x: torch.Tensor, spec: tuple) -> torch.Tensor:
+    """This rank's block of ``x`` placed by ``spec`` (one entry a dim)."""
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            x = local_block(x, dim, entry)
+    return x
+
+
 def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     """``repro``'s sharding constraint in the local program; no-op without a
     mesh. Dims whose size does not divide into the mapped mesh axes are left
-    as they are. On ``"expert"`` and ``"seq"`` (replicated in the local
-    program) the rank's block is taken; other axes already have their layout."""
+    as they are. On ``"expert"`` (replicated in the local program) the rank's
+    block is taken; other axes already have their layout."""
     mesh, _ = _current()
     if mesh is None:
         return x
@@ -293,12 +312,32 @@ def _gather(x: torch.Tensor, dim: int, entry: Entry, g: int) -> torch.Tensor:
     return out
 
 
+def _scatter(x: torch.Tensor, dim: int, entry: Entry, g: int) -> torch.Tensor:
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // g,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x, group=_group(entry))
+    _count("reduce-scatter", out.numel() * out.element_size(), g)
+    return out.movedim(0, dim)
+
+
 class _SumReduce(torch.autograd.Function):
     """Forward: the sum over the group; backward: the gradient as it is."""
 
     @staticmethod
     def forward(ctx, x, entry, g):
         return _reduce(x.clone(), entry, "sum", g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _MeanReduce(torch.autograd.Function):
+    """Forward: the mean over the group; backward: the gradient as it is."""
+
+    @staticmethod
+    def forward(ctx, x, entry, g):
+        return _reduce(x.clone(), entry, "sum", g) / g
 
     @staticmethod
     def backward(ctx, grad):
@@ -319,16 +358,35 @@ class _CopyTo(torch.autograd.Function):
 
 
 class _Gather(torch.autograd.Function):
-    """Forward: every rank's block; backward: this rank's block."""
+    """Forward: every rank's block; backward: this rank's block of the
+    gradient, or with ``sum_grad`` the gradient reduce-scattered."""
 
     @staticmethod
-    def forward(ctx, x, dim, entry, g):
-        ctx.dim, ctx.entry = dim, entry
+    def forward(ctx, x, dim, entry, g, sum_grad):
+        ctx.dim, ctx.entry, ctx.g, ctx.sum_grad = dim, entry, g, sum_grad
         return _gather(x, dim, entry, g)
 
     @staticmethod
     def backward(ctx, grad):
-        return local_block(grad, ctx.dim, ctx.entry).contiguous(), None, None, None
+        if ctx.sum_grad:
+            out = _scatter(grad, ctx.dim, ctx.entry, ctx.g)
+        else:
+            out = local_block(grad, ctx.dim, ctx.entry).contiguous()
+        return out, None, None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """Forward: the sum over the group, this rank's block; backward: every
+    rank's block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, entry, g):
+        ctx.dim, ctx.entry, ctx.g = dim, entry, g
+        return _scatter(x, dim, entry, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather(grad, ctx.dim, ctx.entry, ctx.g), None, None, None
 
 
 def _tracked(x: torch.Tensor) -> bool:
@@ -350,6 +408,20 @@ def all_reduce(x: torch.Tensor, entry: Entry = "model", op: str = "sum") -> torc
     return _reduce(x, entry, op, g)
 
 
+def data_mean(x: torch.Tensor, entry: Entry) -> torch.Tensor:
+    """The mean of ``x`` over the batch axes ``entry`` names (a new tensor),
+    counted; ``x`` as it is at size 1 or without a mesh. Under autograd its
+    gradient passes through unchanged: the train step averages the ranks'
+    gradients over the same axes, and that average is the mean's gradient."""
+    mesh, _ = _current()
+    g = mesh_size(mesh, entry) if mesh is not None else 1
+    if g == 1:
+        return x
+    if _tracked(x):
+        return _MeanReduce.apply(x, entry, g)
+    return _reduce(x.clone(), entry, "sum", g) / g
+
+
 def copy_to(x: torch.Tensor, entry: Entry = "model") -> torch.Tensor:
     """``x`` as it is, entering a region split over ``entry``: under
     autograd its gradient is summed over the group (Megatron's f)."""
@@ -362,26 +434,116 @@ def copy_to(x: torch.Tensor, entry: Entry = "model") -> torch.Tensor:
 
 def reduce_scatter(x: torch.Tensor, dim: int, entry: Entry = "model") -> torch.Tensor:
     """The sum over the group of ``x``, of which this rank keeps its block
-    along ``dim``, counted (result bytes). Skipped at size 1."""
-    mesh, _ = _current()
-    g = mesh_size(mesh, entry)
-    if g == 1:
-        return x
-    x = x.movedim(dim, 0).contiguous()
-    out = x.new_empty((x.shape[0] // g,) + tuple(x.shape[1:]))
-    dist.reduce_scatter_tensor(out, x, group=_group(entry))
-    _count("reduce-scatter", out.numel() * out.element_size(), g)
-    return out.movedim(0, dim)
-
-
-def all_gather(x: torch.Tensor, dim: int, entry: Entry = "model") -> torch.Tensor:
-    """The blocks of every rank along the mesh axes ``entry`` names,
-    concatenated along ``dim`` in rank order, counted (result bytes).
-    Skipped at size 1."""
+    along ``dim``, counted (result bytes); under autograd its gradient is
+    every rank's block, all-gathered. Skipped at size 1."""
     mesh, _ = _current()
     g = mesh_size(mesh, entry)
     if g == 1:
         return x
     if _tracked(x):
-        return _Gather.apply(x, dim, entry, g)
+        return _Scatter.apply(x, dim, entry, g)
+    return _scatter(x, dim, entry, g)
+
+
+def all_gather(x: torch.Tensor, dim: int, entry: Entry = "model", *,
+               sum_grad: bool = False) -> torch.Tensor:
+    """The blocks of every rank along the mesh axes ``entry`` names,
+    concatenated along ``dim`` in rank order, counted (result bytes).
+    Skipped at size 1. Under autograd its gradient is this rank's block of
+    the gradient (every rank computes the same one), or with ``sum_grad``
+    the gradient reduce-scattered (each rank computes a part of it: a
+    sequence-parallel region, an FSDP parameter)."""
+    mesh, _ = _current()
+    g = mesh_size(mesh, entry)
+    if g == 1:
+        return x
+    if _tracked(x):
+        return _Gather.apply(x, dim, entry, g, sum_grad)
     return _gather(x, dim, entry, g)
+
+
+def gather_block(x: torch.Tensor, spec: tuple) -> torch.Tensor:
+    """The whole tensor of which ``x`` is this rank's block under ``spec``,
+    all-gathered dim by dim (counted)."""
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            x = all_gather(x, dim, entry)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism and FSDP in the local program
+# ---------------------------------------------------------------------------
+
+
+def seq_parallel(seq_len: int) -> bool:
+    """Whether a residual stream of ``seq_len`` positions is split over the
+    model axis (Korthikanti et al.): the rules map ``"seq"`` to it, it is
+    larger than 1, and ``seq_len`` divides into it."""
+    mesh, rules = _current()
+    if mesh is None or rules.get("seq") != MODEL_AXIS:
+        return False
+    m = mesh_size(mesh, MODEL_AXIS)
+    return m > 1 and seq_len % m == 0
+
+
+@contextlib.contextmanager
+def sequence_parallel(on: bool):
+    """Mark the enclosed region as running on the rank's block of the
+    sequence (dim 1) when ``on``: :func:`enter` and :func:`leave` then
+    gather and scatter over it. A remat body enters it itself, so that its
+    recompute in the backward runs the same program."""
+    prev = getattr(_state, "seq", False)
+    _state.seq = on
+    try:
+        yield
+    finally:
+        _state.seq = prev
+
+
+def seq_sharded() -> bool:
+    return getattr(_state, "seq", False)
+
+
+def enter(x: torch.Tensor, split: bool = True) -> torch.Tensor:
+    """The input of a region whose weights are split over the model axis
+    (``split``): Megatron's f (:func:`copy_to`). In a sequence-parallel
+    region (:func:`sequence_parallel`) the input of any region that mixes
+    positions: the whole sequence, gathered, whose gradient (each rank's
+    part of it) is reduce-scattered."""
+    if seq_sharded():
+        return all_gather(x, 1, MODEL_AXIS, sum_grad=True)
+    return copy_to(x) if split else x
+
+
+def leave(y: torch.Tensor, split: bool = True) -> torch.Tensor:
+    """The output of a region :func:`enter` opened: partial sums
+    all-reduced (Megatron's g) where ``split``; in a sequence-parallel
+    region reduce-scattered over the sequence, or where not ``split`` the
+    rank's block of it."""
+    if seq_sharded():
+        return reduce_scatter(y, 1) if split else local_block(y, 1, MODEL_AXIS)
+    return all_reduce(y) if split else y
+
+
+@contextlib.contextmanager
+def gathered(module, recurse: bool = True, fields: Optional[tuple[str, ...]] = None):
+    """FSDP: inside, each parameter that the placement split over the data
+    axes (listed in ``module.fsdp``, and in its submodules' with
+    ``recurse``; only ``fields`` where given) reads as its all-gather over
+    them, whose gradient is reduce-scattered back onto the block (summed
+    over the data ranks); outside, the blocks. A remat body enters it
+    itself, so its recompute gathers again."""
+    swapped = []
+    for mod in (module.modules() if recurse else (module,)):
+        for field, (dim, entry) in vars(mod).get("fsdp", {}).items():
+            if fields is not None and field not in fields:
+                continue
+            block = mod._parameters[field]
+            mod._parameters[field] = all_gather(block, dim, entry, sum_grad=True)
+            swapped.append((mod, field, block))
+    try:
+        yield
+    finally:
+        for mod, field, block in swapped:
+            mod._parameters[field] = block

@@ -65,6 +65,10 @@ backward: dict[str, int] = {name: 0 for name in KERNELS}
 form_launches: dict[str, int] = {name: 0 for name in FORMS}
 form_plain: dict[str, int] = {name: 0 for name in FORMS}
 
+# what a CUDA graph records and replays
+_COUNTERS = {"launches": launches, "plain": plain, "form_launches": form_launches,
+             "form_plain": form_plain}
+
 _libs: dict[str, ctypes.CDLL] = {}
 last_build_s: float | None = None  # wall time of the last build, None if loaded
 
@@ -79,8 +83,9 @@ def reset_counters() -> None:
 def recording():
     """Around a CUDA-graph capture: yields a dict that holds, once the block
     has ended, the counts made inside it (``{"launches": {...}, "plain":
-    {...}}``), and leaves the counters as they were before it."""
-    counters = {"launches": launches, "plain": plain}
+    {...}, "form_launches": {...}, "form_plain": {...}}``), and leaves the
+    counters as they were before it."""
+    counters = _COUNTERS
     before = {key: dict(d) for key, d in counters.items()}
     recorded: dict[str, dict[str, int]] = {}
     try:
@@ -94,7 +99,7 @@ def recording():
 
 def replayed(recorded: dict[str, dict[str, int]]) -> None:
     """Count one replay of a graph whose capture recorded ``recorded``."""
-    for key, d in (("launches", launches), ("plain", plain)):
+    for key, d in _COUNTERS.items():
         for name, n in recorded[key].items():
             d[name] += n
 

@@ -11,12 +11,37 @@ tensors (allocation-free), and runs the step once under the counters of
 temp bytes are the peak of the step's op results alive at once. The
 transformer and encoder-decoder families run their tensor-parallel local
 program; the recurrent families (hybrid, xlstm) have none yet, and their
-step all-gathers each model-split block first (and reduce-scatters the
-gradients), counted. ``train_4k`` all-reduces the gradients over the data
-axes, as SPMD would, and those all-reduces are counted.
+step all-gathers each model-split block first (and keeps its block of each
+gradient), counted. ``train_4k`` runs the port's one sharded train step
+(``train.loop.make_train_step``): the gradients averaged over the batch axes,
+the loss averaged and the norm global, each collective counted.
+
+``repro``'s hillclimb knobs, all off by default (the paper-faithful
+baseline), each as the local program its SPMD program implies:
+
+- ``--dp-only``: batch over every mesh axis it divides
+  (``shardings.dp_only_rules``), parameters and optimizer state replicated
+  (``place_params(replicate=True)``): no tensor-parallel collective; the
+  gradients averaged over the batch axes.
+- ``--fsdp``: parameters and optimizer state split over the data axes too
+  (``add_fsdp_axes``); the step all-gathers each such block over them where
+  a layer reads it (again in the remat recompute) and the all-gather's
+  backward reduce-scatters its gradient; the update runs on the blocks.
+  With ``--dp-only`` the parameters stay whole and only the optimizer state
+  is split (ZeRO-1, as ``repro`` places it): each rank updates its blocks
+  from the averaged gradients and all-gathers the new parameters.
+- ``--accum-steps N``: the batch cut into N micro-batches, the gradients
+  summed in f32 and divided by N, the loss their mean; the batch-axis
+  all-reduce runs once a step, after the sum.
+- ``--seq-parallel``: ``rules["seq"] = "model"``: the transformer's and the
+  encoder-decoder's residual stream is the rank's block of the sequence,
+  each activation all-reduce after ``wo``/``w_down`` (and the embedding's)
+  a reduce-scatter over it, each split region's entry an all-gather
+  (Korthikanti et al.). The recurrent families keep their whole sequence.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
+  python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k --fsdp
   python -m repro_torch.launch.dryrun --all                 # 10 x 4, single pod
   python -m repro_torch.launch.dryrun --all --multi-pod     # the 2-pod mesh
 
@@ -40,6 +65,7 @@ from ..models import attention as _attn
 from ..models.model import _FAMILIES, build_model
 from ..optim.adamw import AdamW
 from ..roofline.count import Roofline, count
+from ..train.loop import make_train_step
 from . import shardings as _sh
 from .mesh import make_production_mesh
 from .specs import INPUT_SHAPES, applicable, config_for_shape, input_specs
@@ -79,20 +105,26 @@ def _batch_dim(name: str, cache: dict) -> int:
     return 1
 
 
-def build_lowerable(cfg: ArchConfig, shape_name: str, mesh):
+def build_lowerable(cfg: ArchConfig, shape_name: str, mesh, *, dp_only: bool = False,
+                    fsdp: bool = False, accum_steps: int = 1):
     """(step function of no arguments, argument bytes of rank 0): the
     parameters, optimizer state, batch and cache as rank 0's blocks."""
     model = build_model(cfg, device=META)
     params = _FAMILIES[cfg.family][1](cfg, META)
-    specs = _sh.place_params(params, cfg, mesh)
-    local = _sh.has_local_program(params)
     spec = input_specs(cfg, shape_name)
-    data_axes = _sh.data_axes_of(mesh)
-    batch = _blocks(spec["batch"], {k: _sh.batch_spec(k, tuple(t.shape), mesh, data_axes)
+    specs = _sh.place_params(params, cfg, mesh, replicate=dp_only, fsdp=fsdp)
+    local = _sh.has_local_program(params)
+    batch_axes = sh.logical_to_spec("batch")[0]
+    batch = _blocks(spec["batch"], {k: _sh.batch_spec(k, tuple(t.shape), mesh, batch_axes)
                                     for k, t in spec["batch"].items()}, mesh)
     cache, cache_specs = None, {}
     if spec["cache"] is not None:
         cache_specs = _sh.cache_specs(spec["cache"], cfg, mesh)
+        if dp_only:  # no tensor parallelism: this rank's rows of a whole cache
+            cache_specs = {k: _sh._guard(tuple(batch_axes if d == _batch_dim(k, spec["cache"])
+                                               else None for d in range(t.dim())),
+                                         tuple(t.shape), mesh)
+                           for k, t in spec["cache"].items()}
         cache = _blocks(spec["cache"], cache_specs, mesh)
     arg_bytes = _nbytes(params.parameters()) + _nbytes(batch.values())
     arg_bytes += _nbytes(cache.values()) if cache is not None else 0
@@ -100,32 +132,26 @@ def build_lowerable(cfg: ArchConfig, shape_name: str, mesh):
     if spec["kind"] == "train":
         params.requires_grad_(True)
         opt = AdamW(learning_rate=3e-4)
-        state = opt.init(params)
+        # ZeRO-1: whole parameters, the optimizer state split as FSDP splits it
+        state_specs = _sh.param_specs(params, cfg, mesh, fsdp=True) if dp_only and fsdp else None
+        state = opt.init(params, state_specs)
         arg_bytes += _nbytes([*state.mu.values(), *state.nu.values(), *state.master.values()])
-        partial = _sh.partial_grad_names(params)
+        step = make_train_step(model, opt, remat=True, specs=specs, state_specs=state_specs,
+                               accum_steps=accum_steps)
 
         def train_step():
-            gathered = {} if local else _sh.gather_params(params, specs)
-            if gathered:
-                params.requires_grad_(True)
-            params.zero_grad(set_to_none=True)
-            loss, _ = model.loss(params, batch, remat=True)
-            loss.backward()
-            grads = {}
-            for n, p in params.named_parameters():
-                g = p.grad
-                if n in partial:
-                    g = sh.all_reduce(g, _sh.MODEL_AXIS)
-                for dim, entry in enumerate(gathered.get(n, ())):
-                    if entry == _sh.MODEL_AXIS:
-                        g = sh.reduce_scatter(g, dim)
-                grads[n] = sh.all_reduce(g, data_axes)
-            if gathered:  # the update runs on the blocks
-                _sh.place_params(params, cfg, mesh)
-            opt.update(grads, state, params)
-            return loss
+            return step(params, state, batch)[2]["loss"]
 
         return train_step, arg_bytes
+
+    def whole_params():
+        """The parameters as this rank's program reads them: gathered over
+        the model axis where the family has no local program, over the data
+        axes where FSDP split them."""
+        if not local:
+            _sh.gather_params(params, specs)
+        elif fsdp:
+            _sh.gather_params(params, specs, model=False)
 
     def with_cache():
         if local:
@@ -143,15 +169,13 @@ def build_lowerable(cfg: ArchConfig, shape_name: str, mesh):
 
     if spec["kind"] == "prefill":
         def prefill_step():
-            if not local:
-                _sh.gather_params(params, specs)
+            whole_params()
             return model.prefill(params, batch, with_cache())[0]
 
         return prefill_step, arg_bytes
 
     def decode_step():
-        if not local:
-            _sh.gather_params(params, specs)
+        whole_params()
         return model.decode_step(params, with_cache(), batch["tokens"])[0]
 
     return decode_step, arg_bytes
@@ -159,21 +183,24 @@ def build_lowerable(cfg: ArchConfig, shape_name: str, mesh):
 
 def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
             save: bool = True, verbose: bool = True,
+            dp_only: bool = False, fsdp: bool = False, accum_steps: int = 1,
             cache_update: str = "onehot", decode_attn: str = "local",
-            tag: str = "") -> dict:
+            seq_parallel: bool = False, tag: str = "") -> dict:
     knobs = (_attn.CACHE_UPDATE_MODE, _attn.DECODE_ATTN_MODE, _sh.FORCE_SEQ_SHARD_CACHE)
     _attn.CACHE_UPDATE_MODE = cache_update
     _attn.DECODE_ATTN_MODE = decode_attn
     _sh.FORCE_SEQ_SHARD_CACHE = decode_attn == "shard_map"
+    opts = {"dp_only": dp_only, "fsdp": fsdp, "accum_steps": accum_steps,
+            "cache_update": cache_update, "decode_attn": decode_attn,
+            "seq_parallel": seq_parallel}
     try:
         return _run_one(arch, shape_name, multi_pod=multi_pod, save=save, verbose=verbose,
-                        cache_update=cache_update, decode_attn=decode_attn, tag=tag)
+                        opts=opts, tag=tag)
     finally:
         _attn.CACHE_UPDATE_MODE, _attn.DECODE_ATTN_MODE, _sh.FORCE_SEQ_SHARD_CACHE = knobs
 
 
-def _run_one(arch, shape_name, *, multi_pod, save, verbose, cache_update, decode_attn,
-             tag) -> dict:
+def _run_one(arch, shape_name, *, multi_pod, save, verbose, opts, tag) -> dict:
     cfg = config_for_shape(get_config(arch), shape_name)
     ok, reason = applicable(cfg, shape_name)
     label = f"{arch} x {shape_name} x {'2pod' if multi_pod else '1pod'}"
@@ -191,10 +218,15 @@ def _run_one(arch, shape_name, *, multi_pod, save, verbose, cache_update, decode
     # batch too small to shard over the data axes -> replicate activations
     if INPUT_SHAPES[shape_name].global_batch % _sh._mesh_size(mesh, _sh.data_axes_of(mesh)):
         rules["batch"] = None
+    if opts["seq_parallel"]:
+        rules["seq"] = _sh.MODEL_AXIS
+    if opts["dp_only"]:
+        rules = _sh.dp_only_rules(mesh, INPUT_SHAPES[shape_name].global_batch)
     t0 = time.perf_counter()
     try:
         with sh.use_mesh(mesh, rules):
-            fn, arg_bytes = build_lowerable(cfg, shape_name, mesh)
+            fn, arg_bytes = build_lowerable(cfg, shape_name, mesh, dp_only=opts["dp_only"],
+                                            fsdp=opts["fsdp"], accum_steps=opts["accum_steps"])
             out, stats = count(fn)
             out_bytes = out.numel() * out.element_size() if out is not None else 0
     except Exception as e:
@@ -215,7 +247,7 @@ def _run_one(arch, shape_name, *, multi_pod, save, verbose, cache_update, decode
     result = {
         "arch": arch, "shape": shape_name, "multi_pod": multi_pod,
         "status": "ok", "tag": tag,
-        "opts": {"cache_update": cache_update, "decode_attn": decode_attn},
+        "opts": opts,
         "chips": chips, "trace_s": round(t_trace, 1),
         "memory": {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
                    "temp_bytes": stats.temp_bytes,
@@ -248,8 +280,13 @@ def main(argv=None) -> None:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
+    # repro's hillclimb knobs (defaults: the paper-faithful baseline)
+    ap.add_argument("--dp-only", action="store_true")
+    ap.add_argument("--fsdp", action="store_true")
+    ap.add_argument("--accum-steps", type=int, default=1)
     ap.add_argument("--cache-update", choices=("onehot", "scatter"), default="onehot")
     ap.add_argument("--decode-attn", choices=("local", "shard_map"), default="local")
+    ap.add_argument("--seq-parallel", action="store_true")
     # repro's knob; the local program already runs the sLSTM on the rank's
     # batch block (its shard_map branch), so here it changes nothing
     ap.add_argument("--slstm-shard-map", action="store_true",
@@ -267,8 +304,10 @@ def main(argv=None) -> None:
 
     failures = 0
     for a, s, mp in combos:
-        res = run_one(a, s, multi_pod=mp, cache_update=args.cache_update,
-                      decode_attn=args.decode_attn, tag=args.tag)
+        res = run_one(a, s, multi_pod=mp, dp_only=args.dp_only, fsdp=args.fsdp,
+                      accum_steps=args.accum_steps, cache_update=args.cache_update,
+                      decode_attn=args.decode_attn, seq_parallel=args.seq_parallel,
+                      tag=args.tag)
         failures += res["status"] == "failed"
     print(f"\n{len(combos)} combos, {failures} failures")
     raise SystemExit(1 if failures else 0)

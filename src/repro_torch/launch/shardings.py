@@ -141,14 +141,19 @@ def _leaf_param_spec(name: str, shape: tuple[int, ...], cfg: ArchConfig, mesh) -
 
 
 def param_spec(name: str, shape: tuple[int, ...], cfg: ArchConfig, mesh, *,
-               stacked: bool = False) -> tuple:
+               stacked: bool = False, fsdp: bool = False) -> tuple:
     """Spec of the port parameter ``name`` (dotted, as ``named_parameters``
     gives it) of ``shape``: the reference's spec for its leaf, with the stack
-    dim dropped when the reference's leaf is ``stacked``."""
+    dim dropped when the reference's leaf is ``stacked``; with ``fsdp`` also
+    split over the data axes (:func:`add_fsdp_axes` through :func:`_guard`,
+    as ``repro``'s ``shard_params_like``). A port layer is one slice of the
+    stack, which stands here as a dim of 1, so the stack dim is never split."""
     leaf = name.split(".")[-1]
-    if not stacked:
-        return _leaf_param_spec(leaf, tuple(shape), cfg, mesh)
-    return _leaf_param_spec(leaf, (1,) + tuple(shape), cfg, mesh)[1:]
+    full = ((1,) if stacked else ()) + tuple(shape)
+    spec = _leaf_param_spec(leaf, full, cfg, mesh)
+    if fsdp:
+        spec = _guard(add_fsdp_axes(spec, full, mesh, data_axes_of(mesh)), full, mesh)
+    return spec[1:] if stacked else spec
 
 
 def _reference_cache_name(name: str) -> str:
@@ -248,8 +253,10 @@ def data_axes_of(mesh):
 # ---------------------------------------------------------------------------
 
 
-def param_specs(params: nn.Module, cfg: ArchConfig, mesh, *, replicate: bool = False) -> dict:
-    """name -> spec of every parameter of the port's model ``params``."""
+def param_specs(params: nn.Module, cfg: ArchConfig, mesh, *, replicate: bool = False,
+                fsdp: bool = False) -> dict:
+    """name -> spec of every parameter of the port's model ``params``
+    (``replicate`` wins over ``fsdp``, as in ``repro``)."""
     from ..models.convert import reference_ndim
 
     ndim = reference_ndim(params)
@@ -259,7 +266,7 @@ def param_specs(params: nn.Module, cfg: ArchConfig, mesh, *, replicate: bool = F
             out[name] = (None,) * p.dim()
         else:
             out[name] = param_spec(name, tuple(p.shape), cfg, mesh,
-                                   stacked=ndim[name] > p.dim())
+                                   stacked=ndim[name] > p.dim(), fsdp=fsdp)
     return out
 
 
@@ -272,13 +279,6 @@ def cache_specs(cache: dict, cfg: ArchConfig, mesh) -> dict:
 def local_shape(shape: tuple[int, ...], spec: tuple, mesh) -> tuple[int, ...]:
     """The shape of one rank's block under ``spec``."""
     return tuple(d // _mesh_size(mesh, e) for d, e in zip(shape, tuple(spec) + (None,) * len(shape)))
-
-
-def _block(t: torch.Tensor, spec: tuple) -> torch.Tensor:
-    for dim, entry in enumerate(spec):
-        if entry is not None:
-            t = sh.local_block(t, dim, entry)
-    return t
 
 
 def _tensor_parallel(params: nn.Module, specs: dict, cfg: ArchConfig, mesh) -> None:
@@ -346,19 +346,37 @@ def has_local_program(params: nn.Module) -> bool:
     return isinstance(params, (Transformer, EncDec))
 
 
+def _module_field(params: nn.Module, name: str) -> tuple[nn.Module, str]:
+    mod_name, _, field = name.rpartition(".")
+    return (params.get_submodule(mod_name) if mod_name else params), field
+
+
+def _replace(params: nn.Module, name: str, t: torch.Tensor, requires_grad: bool) -> None:
+    mod, field = _module_field(params, name)
+    mod._parameters[field] = nn.Parameter(t, requires_grad=requires_grad)
+
+
 @torch.no_grad()
-def place_params(params: nn.Module, cfg: ArchConfig, mesh, *, replicate: bool = False) -> dict:
+def place_params(params: nn.Module, cfg: ArchConfig, mesh, *, replicate: bool = False,
+                 fsdp: bool = False) -> dict:
     """Replace every parameter of ``params`` with this rank's block under
     :func:`param_specs`, in place, and mark the modules of a family with a
-    local program; returns the specs. Call inside ``use_mesh(mesh, ...)``."""
-    specs = param_specs(params, cfg, mesh, replicate=replicate)
+    local program; returns the specs. With ``fsdp`` each module lists the
+    parameters split over the data axes in ``module.fsdp`` (field -> (dim,
+    axes)), which its program gathers where it reads them
+    (``sharding.gathered``). Call inside ``use_mesh(mesh, ...)``."""
+    specs = param_specs(params, cfg, mesh, replicate=replicate, fsdp=fsdp)
+    data_axes = data_axes_of(mesh)
+    for mod in params.modules():
+        vars(mod).pop("fsdp", None)
     for name, p in list(params.named_parameters()):
-        block = _block(p.data, specs[name])
+        block = sh.block(p.data, specs[name])
         if block.shape != p.shape:
-            mod_name, _, field = name.rpartition(".")
-            mod = params.get_submodule(mod_name) if mod_name else params
-            mod._parameters[field] = nn.Parameter(block.contiguous().clone(),
-                                                  requires_grad=p.requires_grad)
+            _replace(params, name, block.contiguous().clone(), p.requires_grad)
+        split = [(d, e) for d, e in enumerate(specs[name]) if e is not None and e == data_axes]
+        if split and has_local_program(params):
+            mod, field = _module_field(params, name)
+            vars(mod).setdefault("fsdp", {})[field] = split[0]
     if has_local_program(params) and not replicate:
         _tensor_parallel(params, specs, cfg, mesh)
     return specs
@@ -378,56 +396,74 @@ def place_cache(cache: dict, cfg: ArchConfig, mesh) -> tuple[dict, dict]:
             if (dims[0] if dims else None) != kv_cache_dim(cfg, mesh, length):
                 raise ValueError(f"cache {name}: its {cache[name].shape[3]} rows do not divide "
                                  f"into the model axis, as the attention's placement assumes")
-    return {k: _block(t, specs[k]).contiguous().clone() for k, t in cache.items()}, specs
+    return {k: sh.block(t, specs[k]).contiguous().clone() for k, t in cache.items()}, specs
 
 
-def _gather_model(t: torch.Tensor, spec: tuple) -> torch.Tensor:
-    for dim, entry in enumerate(spec):
-        if entry == MODEL_AXIS:
-            t = sh.all_gather(t, dim, entry)
-    return t
+def _model_only(spec: tuple) -> tuple:
+    return tuple(e if e == MODEL_AXIS else None for e in spec)
 
 
 @torch.no_grad()
-def gather_params(params: nn.Module, specs: dict) -> dict:
-    """Undo :func:`place_params`' model-axis split of ``params`` in place by
-    all-gathers (counted): the dry-run's step for a family with no local
-    program. Returns the specs of the gathered parameters' blocks."""
+def gather_params(params: nn.Module, specs: dict, *, model: bool = True) -> dict:
+    """Undo :func:`place_params`' split of ``params`` in place by all-gathers
+    (counted): over the data axes of an FSDP placement, and over the model
+    axis unless ``model`` is false. A family with no local program runs so,
+    and an FSDP model's prefill and decode (its data axes alone). Returns the
+    specs of the gathered parameters' blocks."""
     gathered = {}
     for name, p in list(params.named_parameters()):
-        t = _gather_model(p.data, specs[name])
+        spec = specs[name] if model else tuple(None if e == MODEL_AXIS else e
+                                               for e in specs[name])
+        t = sh.gather_block(p.data, spec)
         if t.shape != p.shape:
-            mod_name, _, field = name.rpartition(".")
-            mod = params.get_submodule(mod_name) if mod_name else params
-            mod._parameters[field] = nn.Parameter(t, requires_grad=p.requires_grad)
+            _replace(params, name, t, p.requires_grad)
             gathered[name] = specs[name]
     return gathered
+
+
+@torch.no_grad()
+def reshard_params(params: nn.Module, specs: dict) -> None:
+    """Replace each parameter named in ``specs`` (a whole tensor, as
+    :func:`gather_params` left it) with this rank's block again."""
+    for name, p in list(params.named_parameters()):
+        if name in specs:
+            _replace(params, name, sh.block(p.data, specs[name]).contiguous().clone(),
+                     p.requires_grad)
 
 
 def gather_tensors(tensors: dict, specs: dict) -> dict:
     """Each block gathered over the model axis (counted); data-axis blocks
     stay this rank's."""
-    return {name: _gather_model(t, specs[name]) for name, t in tensors.items()}
+    return {name: sh.gather_block(t, _model_only(specs[name])) for name, t in tensors.items()}
 
 
-def partial_grad_names(params: nn.Module) -> list[str]:
+def partial_grad_names(params: nn.Module, seq_len: Optional[int] = None) -> list[str]:
     """The replicated parameters that a split region reads, whose gradients
     are partial sums on each rank and need an all-reduce over the model axis:
     an attention's norms (and ``wk``/``wv`` where its kv heads are not split)
-    when its heads are split, an MoE's router when its experts are."""
+    when its heads are split. In a sequence-parallel stream
+    (``sharding.seq_parallel``: the decoder's ``seq_len`` positions, the
+    encoder's frames) also the norms that read the rank's block of the
+    stream. (An MoE's router reads the whole routing weights: its experts'
+    part of them is all-reduced where it enters the split region.)"""
     from ..models.attention import Attention
-    from ..models.moe import MoE
+    from ..models.encdec import EncDec
 
     out = []
     for prefix, mod in params.named_modules():
         tp = getattr(mod, "tp", None)
         if isinstance(mod, Attention) and tp is not None and tp.heads:
             fields = ["q_norm", "k_norm"] + ([] if tp.kv else ["wk", "wv"])
-        elif isinstance(mod, MoE) and tp is not None and tp.experts:
-            fields = ["router"]
-        else:
+            out += [f"{prefix}.{f}" for f in fields if getattr(mod, f) is not None]
+    if seq_len is None or not has_local_program(params):
+        return out
+    encoder = isinstance(params, EncDec) and sh.seq_parallel(params.cfg.encoder_frames)
+    for name, p in params.named_parameters():
+        if p.dim() != 1 or name.rsplit(".", 1)[-1] in ("q_norm", "k_norm"):
             continue
-        out += [f"{prefix}.{f}" for f in fields if getattr(mod, f) is not None]
+        on_encoder = name.startswith("encoder.") or name == "enc_norm"
+        if (encoder if on_encoder else sh.seq_parallel(seq_len)):
+            out.append(name)
     return out
 
 

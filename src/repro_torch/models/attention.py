@@ -206,9 +206,10 @@ def prefill_attention(
     ``causal=False``), or with ``cross_kv`` attention of the sequence's
     queries over given keys and values, each optionally within a sliding
     ``window`` (zamba2's shared attention). Returns (out (B,S,d), (k, v) in
-    (B,K,S,hd) layout)."""
-    if p.tp is not None and p.tp.heads:
-        x = sh.copy_to(x)
+    (B,K,S,hd) layout). In a sequence-parallel region ``x`` and ``out`` are
+    the rank's block of the sequence, ``positions`` and K/V the whole."""
+    split = p.tp is not None and p.tp.heads
+    x = sh.enter(x, split)
     if cross_kv is None:
         q, k, v = _project_qkv(p, x, positions, rope_theta, eps, use_rope)
     else:
@@ -227,7 +228,7 @@ def prefill_attention(
         out = ops.flash_attention(qh, _kv_for_heads(kh, tp, n_q), _kv_for_heads(vh, tp, n_q),
                                   causal=causal, window=window, use_kernel=use_kernel)
     y = torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), p.wo)
-    y = shard(_reduce_heads(y, tp), "batch", "seq", None)
+    y = shard(sh.leave(y, split), "batch", "seq", None)
     return y, (kh, vh)
 
 

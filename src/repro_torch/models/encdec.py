@@ -31,7 +31,8 @@ from ..configs.base import ArchConfig
 from ..distributed import sharding as sh
 from ..distributed.sharding import shard
 from .attention import Attention, decode_attention_step, prefill_attention, store_prefill_kv
-from .layers import SwiGLU, cross_entropy, embed, normal_init, remat as _remat, rms_norm, unembed
+from .layers import (SwiGLU, cross_entropy, embed, normal_init, remat as _remat, rms_norm,
+                     unembed, unembed_input)
 
 
 def _norm(cfg: ArchConfig, device: torch.device) -> nn.Parameter:
@@ -123,21 +124,29 @@ def encode(cfg: ArchConfig, params: EncDec, frames: torch.Tensor, *, remat: bool
     """frames: (B, F, d_model), the stub frontend's output, cast to the
     model's dtype. Returns the normed encoder output (B, F, d_model)."""
     B, F, _ = frames.shape
+    sp = sh.seq_parallel(F)
     x = shard(frames.to(cfg.torch_dtype), "batch", "seq", None)
+    if sp:  # the rank's block of the frames
+        x = sh.local_block(x, 1, sh.MODEL_AXIS)
     positions = _positions(B, F, x.device)
-    for p in params.encoder:
+    with sh.sequence_parallel(sp):
+        for p in params.encoder:
 
-        def body(x, p=p):
-            h, _ = prefill_attention(
-                p.attn, rms_norm(x, p.ln1, cfg.norm_eps), positions,
-                rope_theta=cfg.rope_theta, eps=cfg.norm_eps, causal=False,
-                use_kernel=use_kernel,
-            )
-            x = x + h
-            return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
+            def body(x, p=p):
+                with sh.sequence_parallel(sp), sh.gathered(p):
+                    h, _ = prefill_attention(
+                        p.attn, rms_norm(x, p.ln1, cfg.norm_eps), positions,
+                        rope_theta=cfg.rope_theta, eps=cfg.norm_eps, causal=False,
+                        use_kernel=use_kernel,
+                    )
+                    x = x + h
+                    return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
 
-        x = _remat(body, x) if remat else body(x)
-    return rms_norm(x, params.enc_norm, cfg.norm_eps)
+            x = _remat(body, x) if remat else body(x)
+    with sh.gathered(params, recurse=False, fields=("enc_norm",)):
+        x = rms_norm(x, params.enc_norm, cfg.norm_eps)
+    # every cross-attention reads every frame, and makes its gradient whole
+    return sh.all_gather(x, 1) if sp else x
 
 
 def _cross_kv(p_attn: Attention, enc_out: torch.Tensor):
@@ -156,31 +165,33 @@ def decode_train(cfg: ArchConfig, params: EncDec, tokens: torch.Tensor,
     """The decoder over a whole token sequence (B, S), teacher-forced.
     Returns logits (B, S, V)."""
     B, S = tokens.shape
-    x = shard(embed(params.embed, tokens, params.tp), "batch", "seq", None)
-    positions = _positions(B, S, x.device)
-    for p in params.decoder:
+    sp = sh.seq_parallel(S)
+    with sh.sequence_parallel(sp), sh.gathered(params, recurse=False,
+                                               fields=("embed", "final_norm", "unembed")):
+        x = shard(embed(params.embed, tokens, params.tp), "batch", "seq", None)
+        positions = _positions(B, S, x.device)
+        for p in params.decoder:
 
-        def body(x, enc_out, p=p):
-            h, _ = prefill_attention(
-                p.self_attn, rms_norm(x, p.ln1, cfg.norm_eps), positions,
-                rope_theta=cfg.rope_theta, eps=cfg.norm_eps, causal=True,
-                use_kernel=use_kernel,
-            )
-            x = x + h
-            h, _ = prefill_attention(
-                p.cross_attn, rms_norm(x, p.ln_x, cfg.norm_eps), positions,
-                rope_theta=cfg.rope_theta, eps=cfg.norm_eps, causal=False,
-                cross_kv=_cross_kv(p.cross_attn, enc_out), use_rope=False,
-                use_kernel=use_kernel,
-            )
-            x = x + h
-            return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
+            def body(x, enc_out, p=p):
+                with sh.sequence_parallel(sp), sh.gathered(p):
+                    h, _ = prefill_attention(
+                        p.self_attn, rms_norm(x, p.ln1, cfg.norm_eps), positions,
+                        rope_theta=cfg.rope_theta, eps=cfg.norm_eps, causal=True,
+                        use_kernel=use_kernel,
+                    )
+                    x = x + h
+                    h, _ = prefill_attention(
+                        p.cross_attn, rms_norm(x, p.ln_x, cfg.norm_eps), positions,
+                        rope_theta=cfg.rope_theta, eps=cfg.norm_eps, causal=False,
+                        cross_kv=_cross_kv(p.cross_attn, enc_out), use_rope=False,
+                        use_kernel=use_kernel,
+                    )
+                    x = x + h
+                    return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
 
-        x = _remat(body, x, enc_out) if remat else body(x, enc_out)
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    if params.tp is not None and params.tp.out_vocab:
-        x = sh.copy_to(x)
-    return unembed(x, params.unembed)
+            x = _remat(body, x, enc_out) if remat else body(x, enc_out)
+        x = rms_norm(x, params.final_norm, cfg.norm_eps)
+        return unembed(unembed_input(x, params.tp), params.unembed)
 
 
 def forward(cfg: ArchConfig, params: EncDec, batch, *, remat: bool = True,

@@ -68,7 +68,7 @@ class GraphCache:
     is the handle of the graphs' memory pool (None until the first capture)."""
 
     def __init__(self) -> None:
-        self.caches: dict[tuple[int, int], dict[str, torch.Tensor]] = {}
+        self.caches: dict[tuple, dict[str, torch.Tensor]] = {}
         self.graphs: dict[tuple, _Graph] = {}
         self.capture_ms: dict[tuple, float] = {}
         self.stats = {"captures": 0, "replays": 0, "dropped": 0}
@@ -77,7 +77,7 @@ class GraphCache:
         self._weights: tuple = ()
         self._stream = None
 
-    def static_cache(self, key: tuple[int, int],
+    def static_cache(self, key: tuple,
                      make: Callable[[], dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
         if key not in self.caches:
             self.caches[key] = make()

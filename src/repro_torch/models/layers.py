@@ -79,9 +79,10 @@ class SwiGLU(nn.Module):
             w.copy_(normal_init(tuple(w.shape), scale, w.dtype, generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.tp is None or not self.tp.ff:
+        split = self.tp is not None and self.tp.ff
+        if not split and not sh.seq_sharded():
             return swiglu(x, self.w_gate, self.w_up, self.w_down)
-        return sh.all_reduce(swiglu(sh.copy_to(x), self.w_gate, self.w_up, self.w_down))
+        return sh.leave(swiglu(sh.enter(x, split), self.w_gate, self.w_up, self.w_down), split)
 
 
 def remat(fn, *args):
@@ -104,13 +105,29 @@ def unembed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def embed(table: torch.Tensor, tokens: torch.Tensor,
           tp: Optional[sh.TensorParallel] = None) -> torch.Tensor:
     """Rows of ``table`` for ``tokens``. With ``tp.vocab`` the table holds
-    this rank's block of vocab rows: a masked lookup, all-reduced."""
+    this rank's block of vocab rows: a masked lookup, all-reduced (in a
+    sequence-parallel region reduce-scattered over the sequence, whose
+    rank's block it returns)."""
     if tp is None or not tp.vocab:
-        return table[tokens.long()]
+        if sh.seq_sharded():  # each rank's block of the rows makes its part of the gradient
+            table = sh.copy_to(table)
+        return sh.leave(table[tokens.long()], False)
     rows = table.shape[0]
     ids = tokens.long() - sh.coordinate(sh.MODEL_AXIS) * rows
     inside = (ids >= 0) & (ids < rows)
-    return sh.all_reduce(table[ids.clamp(0, rows - 1)] * inside[..., None].to(table.dtype))
+    return sh.leave(table[ids.clamp(0, rows - 1)] * inside[..., None].to(table.dtype))
+
+
+def unembed_input(x: torch.Tensor, tp: Optional[sh.TensorParallel]) -> torch.Tensor:
+    """The final hidden state entering the logits projection: Megatron's f
+    where ``tp.out_vocab`` splits the logits; in a sequence-parallel region
+    the whole sequence, gathered (its gradient reduce-scattered where the
+    vocab is split, else every rank's whole loss gives the same gradient,
+    and the gather keeps the rank's block)."""
+    out_vocab = tp is not None and tp.out_vocab
+    if sh.seq_sharded() and not out_vocab:
+        return sh.all_gather(x, 1)
+    return sh.enter(x, out_vocab)
 
 
 def gather_logits(params: nn.Module, logits: torch.Tensor) -> torch.Tensor:

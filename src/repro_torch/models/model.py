@@ -36,7 +36,11 @@ no rows (it is O(1) in ``max_len``), so its caches and graphs are keyed by
 batch (and prompt length) alone, with ``cache_len`` None: one 0.7 GB state
 a batch size, not one a length bucket.
 ``static_cache`` is the model's own cache per ``(B, cache_len)``, reused by
-every call: the graphs' static buffer. Because step ``t`` depends only on
+every call: the graphs' static buffer. On a mesh (``sharding.use_mesh``) the
+keys of the graphs and of the static caches also hold the placement
+(:meth:`Model._layout`), ``cache_len`` is the whole cache's rows, and a
+placed model's static cache is this rank's blocks. Because step ``t``
+depends only on
 steps ``< t``, running extra (bucket-padding) steps never changes the first
 ``n`` tokens.
 
@@ -59,8 +63,11 @@ import torch
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
-from . import encdec, hybrid, transformer, xlstm
+from ..distributed import sharding as sh
+from . import attention, encdec, hybrid, transformer, xlstm
+from .attention import Attention
 from .graphs import GraphCache
+from .layers import gather_logits
 
 # family -> (module of its functions, its parameter module)
 _FAMILIES = {
@@ -137,7 +144,7 @@ class Model:
         """CUDA graphs captured, replayed and dropped for new weights."""
         return self.graphs.stats
 
-    def static_cache(self, batch_size: int, max_len: Optional[int]):
+    def static_cache(self, batch_size: int, max_len: Optional[int], params=None):
         """The model's cache for ``(batch_size, max_len)``, made at the first
         call and returned again after: one a ``(batch_size, cache_len)``, so
         ``max_len`` past a sliding window shares the window's cache, and an
@@ -145,10 +152,50 @@ class Model:
         one's rows or state: prefill writes the prompt's rows and sets
         ``lengths``, and decode attention reads only below ``lengths``;
         prefill starts every recurrent state from its initial value and
-        overwrites the cache's."""
+        overwrites the cache's.
+
+        On a mesh, given the ``params`` it serves, one also a placement
+        (:meth:`_layout`): a placed model's is this rank's blocks
+        (``launch.shardings.place_cache``), and ``max_len`` counts the
+        whole cache's rows."""
         rows = self._rows(max_len)
-        return self.graphs.static_cache((batch_size, rows),
-                                        lambda: self.init_cache(batch_size, max_len))
+        layout = self._layout(params) if params is not None else ()
+
+        def make():
+            cache = self.init_cache(batch_size, max_len)
+            if getattr(params, "tp", None) is None:
+                return cache
+            from ..launch.shardings import place_cache  # launch imports the models
+
+            return place_cache(cache, self.cfg, sh.current_mesh())[0]
+
+        return self.graphs.static_cache((batch_size, rows) + layout, make)
+
+    def _layout(self, params) -> tuple:
+        """What selects the program a graph records besides the shapes, as
+        a key: on a mesh its axes and their sizes, the dim of each
+        attention's cache that the model axis splits (``tp.cache_dim``;
+        None where not placed) and the decode mode. At model-axis size 1 a
+        placed model keeps every weight tensor, so this alone tells its
+        graphs from the unplaced model's. () without a mesh."""
+        mesh = sh.current_mesh()
+        if mesh is None:
+            return ()
+        dims = tuple(m.tp.cache_dim if m.tp is not None else None
+                     for m in params.modules() if isinstance(m, Attention))
+        return ((tuple(mesh.mesh_dim_names), tuple(mesh.shape), dims,
+                 attention.DECODE_ATTN_MODE),)
+
+    def _global_rows(self, params, cache) -> Optional[int]:
+        """``cache_len`` of the whole cache of which ``cache`` may be this
+        rank's slice along the length."""
+        rows = cache_len(cache)
+        if rows is None or sh.current_mesh() is None:
+            return rows
+        tp = next((m.tp for m in params.modules() if isinstance(m, Attention)), None)
+        if tp is not None and tp.cache_dim == 2:
+            rows *= sh.mesh_size(sh.current_mesh(), sh.MODEL_AXIS)
+        return rows
 
     def _rows(self, max_len: Optional[int]) -> Optional[int]:
         """``cache_len`` of ``init_cache(B, max_len)``."""
@@ -166,13 +213,12 @@ class Model:
         name = self._input
         inputs = batch[name]
         B, S = inputs.shape[:2]
-        rows = cache_len(cache)
-        static = self.static_cache(B, rows)
+        static = self.static_cache(B, self._global_rows(params, cache), params)
 
         def body(x):
             return self.prefill(params, {name: x}, static)[0]
 
-        key = ("prefill", B, S, rows)
+        key = self.graph_key("prefill", params, cache, B, S)
         return self.graphs.run(key, params, inputs, body, cache, static), cache
 
     @torch.no_grad()
@@ -182,21 +228,33 @@ class Model:
         n_steps) int32 tokens on the device, the cache)."""
         if self.device.type != "cuda":
             return self._decode_loop(params, cache, tokens, n_steps), cache
-        B, rows = tokens.shape[0], cache_len(cache)
-        static = self.static_cache(B, rows)
+        B = tokens.shape[0]
+        static = self.static_cache(B, self._global_rows(params, cache), params)
 
         def body(toks):
             return self._decode_loop(params, static, toks, n_steps)
 
-        key = ("decode", B, rows, n_steps)
+        key = self.graph_key("decode", params, cache, B, n_steps)
         return self.graphs.run(key, params, tokens, body, cache, static), cache
 
+    def graph_key(self, kind: str, params, cache, batch_size: int, n: int) -> tuple:
+        """The key of the graph that ``prefill_jit`` (``kind`` "prefill",
+        ``n`` the prompt's length or frames) or ``decode_tokens`` ("decode",
+        ``n`` steps) captures for ``cache``: ``("prefill", B, S, cache_len)``
+        or ``("decode", B, cache_len, n_steps)``, and on a mesh the
+        placement (:meth:`_layout`)."""
+        rows = self._global_rows(params, cache)
+        key = (kind, batch_size, n, rows) if kind == "prefill" else (kind, batch_size, rows, n)
+        return key + self._layout(params)
+
     def _decode_loop(self, params, cache, tokens: torch.Tensor, n_steps: int) -> torch.Tensor:
+        """The greedy loop; a placed model's logits are gathered over the
+        vocab before the argmax."""
         out = torch.empty((tokens.shape[0], n_steps), dtype=torch.int32, device=tokens.device)
         tok = tokens
         for t in range(n_steps):
             logits, cache = self.decode_step(params, cache, tok)
-            tok = greedy_token(logits)
+            tok = greedy_token(gather_logits(params, logits))
             out[:, t] = tok[:, 0]
         return out
 

@@ -95,10 +95,15 @@ def router_probs(p: MoE, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def router_aux(m: MoEConfig, logits: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
     """Switch load balance (E · Σ_e f_e · p̄_e, f from the top-1 choice) and
-    router z-loss, on the full distribution; a 0-dim f32 tensor."""
+    router z-loss, on the full distribution; a 0-dim f32 tensor. On a mesh
+    ``f`` and ``p̄`` are the means over the whole batch (one all-reduce
+    over the data axes); the z-loss is this rank's rows' mean."""
     E = m.n_experts
     f = _one_hot(torch.argmax(probs, dim=-1), E).mean(dim=(0, 1))
     pbar = probs.mean(dim=(0, 1))
+    # the whole batch's means, where the batch is split over the data ranks
+    # (the product is not linear in the batch; the z-loss's mean is)
+    f, pbar = sh.data_mean(torch.stack([f, pbar]), sh.logical_to_spec("batch")[0])
     lb = E * torch.sum(f * pbar)
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return m.load_balance_weight * lb + m.router_z_weight * z
@@ -132,9 +137,16 @@ def dispatch_combine(m: MoEConfig, probs: torch.Tensor) -> tuple[torch.Tensor, t
     return dispatch, combine
 
 
-def _experts(m: MoEConfig, p: MoE, x: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
-    dispatch, combine = dispatch_combine(m, probs)
+def _experts(m: MoEConfig, p: MoE, x: torch.Tensor, probs: torch.Tensor,
+             seq_block: bool = False) -> torch.Tensor:
+    """The experts' output; on a mesh the rank's experts, their partial sum
+    all-reduced (with ``seq_block`` reduce-scattered over the sequence, and
+    an unsplit part's block of the sequence kept)."""
     tp = p.tp
+    if tp is not None and tp.experts:
+        # the combine weights below are split: their gradient is partial
+        probs = sh.copy_to(probs)
+    dispatch, combine = dispatch_combine(m, probs)
     if tp is not None and tp.experts:
         dispatch = shard(dispatch, "batch", None, "expert", None)
         combine = shard(combine, "batch", None, "expert", None)
@@ -157,13 +169,26 @@ def _experts(m: MoEConfig, p: MoE, x: torch.Tensor, probs: torch.Tensor) -> torc
         ys = swiglu(sh.copy_to(x) if s_split and not tp.experts else x, s.w_gate, s.w_up,
                     s.w_down)
         (split if s_split else whole).append(ys)
-    y = sh.all_reduce(sum(split)) if split else 0
+    if seq_block:
+        y = sh.reduce_scatter(sum(split), 1) if split else 0
+        whole = [sh.local_block(part, 1, sh.MODEL_AXIS) for part in whole]
+    else:
+        y = sh.all_reduce(sum(split)) if split else 0
     for part in whole:
         y = y + part
     return shard(y, "batch", None, None)
 
 
 def apply_moe(cfg: ArchConfig, p: MoE, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (y, aux_loss), as ``repro.models.moe.apply_moe``."""
-    logits, probs = router_probs(p, x)
-    return _experts(cfg.moe, p, x, probs), router_aux(cfg.moe, logits, probs)
+    """x: (B, S, d) -> (y, aux_loss), as ``repro.models.moe.apply_moe``. In
+    a sequence-parallel region ``x`` and ``y`` are the rank's block of the
+    sequence: the router's queues read the whole sequence, so it is
+    gathered first, and every rank computes the router and aux whole (its
+    gradient is whole: the split experts' part is all-reduced)."""
+    seq_block = sh.seq_sharded()
+    if seq_block:
+        x = sh.all_gather(x, 1)
+    with sh.sequence_parallel(False):
+        logits, probs = router_probs(p, x)
+        y = _experts(cfg.moe, p, x, probs, seq_block)
+        return y, router_aux(cfg.moe, logits, probs)

@@ -30,7 +30,7 @@ from ..distributed.sharding import shard
 from . import moe
 from .attention import Attention, decode_attention_step, prefill_attention, store_prefill_kv
 from .layers import (SwiGLU, cross_entropy, embed, normal_init, remat as _remat, rms_norm,
-                     unembed)
+                     unembed, unembed_input)
 
 
 class Block(nn.Module):
@@ -143,23 +143,29 @@ def forward(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, *,
             remat: bool = True, use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Full forward pass over ``tokens`` (B, S). Returns (logits (B, S, V),
     the layers' summed aux loss as a 0-dim f32 tensor). ``remat``
-    recomputes each layer in the backward."""
+    recomputes each layer in the backward. On a mesh whose rules map
+    ``"seq"`` to the model axis the residual stream between the layers is
+    the rank's block of the sequence (:func:`sh.sequence_parallel`); FSDP
+    parameters are gathered for the layer that reads them, and again in its
+    recompute (:func:`sh.gathered`)."""
     window = cfg.sliding_window
-    x = _embed(params, tokens)
-    positions = _positions(tokens)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in params.layers:
+    sp = sh.seq_parallel(tokens.shape[1])
+    with sh.sequence_parallel(sp), sh.gathered(params, recurse=False):
+        x = _embed(params, tokens)
+        positions = _positions(tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for p in params.layers:
 
-        def body(x, p=p):
-            y, _, layer_aux = _layer_prefill(cfg, p, x, positions, window, use_kernel, True)
-            return y, layer_aux
+            def body(x, p=p):
+                with sh.sequence_parallel(sp), sh.gathered(p):
+                    y, _, layer_aux = _layer_prefill(cfg, p, x, positions, window, use_kernel,
+                                                     True)
+                return y, layer_aux
 
-        x, layer_aux = _remat(body, x) if remat else body(x)
-        aux = aux + layer_aux
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    if params.tp is not None and params.tp.out_vocab:
-        x = sh.copy_to(x)
-    return unembed(x, params.out_proj()), aux
+            x, layer_aux = _remat(body, x) if remat else body(x)
+            aux = aux + layer_aux
+        x = rms_norm(x, params.final_norm, cfg.norm_eps)
+        return unembed(unembed_input(x, params.tp), params.out_proj()), aux
 
 
 def loss_fn(cfg: ArchConfig, params: Transformer, batch, *, remat: bool = True,
@@ -201,17 +207,21 @@ def prefill(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, cache, *
         # clamps onto the last prompt row
         raise ValueError(f"prompt of {S} tokens is longer than the cache's {S_c} rows "
                          f"(repro grows the cache to {S} rows here)")
-    x = _embed(params, tokens)
-    positions = _positions(tokens)
-    for i, p in enumerate(params.layers):
-        x, (k, v), _ = _layer_prefill(cfg, p, x, positions, window, use_kernel, False)
-        if window is not None and S > S_c:
-            # keep the last `window` positions; ring alignment: slot = pos % window
-            shift = (S - S_c) % S_c
-            k = torch.roll(k[:, :, -S_c:], shifts=shift, dims=2)
-            v = torch.roll(v[:, :, -S_c:], shifts=shift, dims=2)
-        store_prefill_kv(cache["k"][i], k, p.attn.tp)
-        store_prefill_kv(cache["v"][i], v, p.attn.tp)
+    sp = sh.seq_parallel(S)
+    with sh.sequence_parallel(sp):
+        x = _embed(params, tokens)
+        positions = _positions(tokens)
+        for i, p in enumerate(params.layers):
+            x, (k, v), _ = _layer_prefill(cfg, p, x, positions, window, use_kernel, False)
+            if window is not None and S > S_c:
+                # keep the last `window` positions; ring alignment: slot = pos % window
+                shift = (S - S_c) % S_c
+                k = torch.roll(k[:, :, -S_c:], shifts=shift, dims=2)
+                v = torch.roll(v[:, :, -S_c:], shifts=shift, dims=2)
+            store_prefill_kv(cache["k"][i], k, p.attn.tp)
+            store_prefill_kv(cache["v"][i], v, p.attn.tp)
+    if sp:  # the last position is on the last rank's block
+        x = sh.all_gather(x, 1)
     x = rms_norm(x[:, -1:, :], params.final_norm, cfg.norm_eps)
     logits = unembed(x, params.out_proj())
     cache["lengths"].fill_(S)

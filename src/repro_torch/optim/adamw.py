@@ -18,12 +18,23 @@ from __future__ import annotations
 
 import dataclasses
 import weakref
-from typing import Callable, NamedTuple, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 from torch import nn
 
+from ..distributed import sharding as sh
 from ..models.convert import reference_ndim
+
+
+def _split_axes(spec: tuple) -> tuple[str, ...]:
+    """The mesh axes a tensor placed by ``spec`` is split over, in the
+    mesh's order (none without a mesh)."""
+    mesh = sh.current_mesh()
+    if mesh is None:
+        return ()
+    named = {a for e in spec if e is not None for a in ((e,) if isinstance(e, str) else e)}
+    return tuple(a for a in mesh.mesh_dim_names if a in named)
 
 
 class AdamWState(NamedTuple):
@@ -52,8 +63,12 @@ class AdamW:
             out = self._decayed[params] = {n: r > 1 for n, r in reference_ndim(params).items()}
         return out
 
-    def init(self, params: nn.Module) -> AdamWState:
-        named = dict(params.named_parameters())
+    def init(self, params: nn.Module, specs: Optional[dict[str, tuple]] = None) -> AdamWState:
+        """Zero moments and an f32 master copy of each parameter; with
+        ``specs`` (on a mesh, for whole parameters: ZeRO-1) each of them is
+        this rank's block under its spec."""
+        named = {n: p.detach() if specs is None else sh.block(p.detach(), specs[n])
+                 for n, p in params.named_parameters()}
         device = next(iter(named.values())).device
         with torch.no_grad():
             return AdamWState(
@@ -62,7 +77,7 @@ class AdamW:
                     for n, p in named.items()},
                 nu={n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                     for n, p in named.items()},
-                master={n: p.detach().float().clone() for n, p in named.items()},
+                master={n: p.float().clone() for n, p in named.items()},
             )
 
     def _lr(self, step: torch.Tensor) -> torch.Tensor:
@@ -72,9 +87,20 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: dict[str, torch.Tensor], state: AdamWState,
-               params: nn.Module) -> dict[str, torch.Tensor]:
+               params: nn.Module, specs: Optional[dict[str, tuple]] = None
+               ) -> dict[str, torch.Tensor]:
         """One step, in place: ``grads`` by parameter name (None counts as
-        zeros). Returns {"grad_norm", "lr"}, 0-dim f32 tensors."""
+        zeros). Returns {"grad_norm", "lr"}, 0-dim f32 tensors.
+
+        On a mesh, ``specs`` (name -> spec, as ``launch.shardings.
+        place_params`` returns them) says which gradients are this rank's
+        blocks, so that the clip reads the global norm: the sums of squares
+        of the blocks split over one set of mesh axes are summed and
+        all-reduced over those axes (one scalar all-reduce a set), and every
+        replicated gradient counts once. Without them the norm is this
+        rank's own. Where the state holds blocks of whole parameters
+        (``init``'s ``specs``: ZeRO-1) ``grads`` are the same blocks, and
+        each parameter becomes the all-gather of its new master block."""
         named = dict(params.named_parameters())
         decayed = self.decayed(params)
 
@@ -85,10 +111,14 @@ class AdamW:
         # global-norm clip (f32): each gradient's sum of squares, taken in f32
         # as the reduction reads it
         zero = torch.zeros((), dtype=torch.float32, device=state.step.device)
-        gnorm = torch.sqrt(torch.stack([
-            zero if grads.get(n) is None
-            else torch.square(torch.linalg.vector_norm(grads[n], dtype=torch.float32))
-            for n in named]).sum())
+        groups: dict[tuple[str, ...], list[torch.Tensor]] = {}
+        for n in named:
+            groups.setdefault(_split_axes(specs[n] if specs else ()), []).append(
+                zero if grads.get(n) is None
+                else torch.square(torch.linalg.vector_norm(grads[n], dtype=torch.float32)))
+        sumsq = [sh.all_reduce(torch.stack(terms).sum(), axes) if axes
+                 else torch.stack(terms).sum() for axes, terms in sorted(groups.items())]
+        gnorm = torch.sqrt(sumsq[0] if len(sumsq) == 1 else torch.stack(sumsq).sum())
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
         state.step.add_(1)
         step = state.step.float()
@@ -104,5 +134,6 @@ class AdamW:
             if decayed[n]:
                 upd = upd + self.weight_decay * master
             master.sub_(lr * upd)
-            p.copy_(master)
+            p.copy_(master if master.shape == p.shape
+                    else sh.gather_block(master.to(p.dtype), specs[n]))
         return {"grad_norm": gnorm, "lr": lr}

@@ -10,6 +10,15 @@ kernel and its backward the plain version's gradient
 (:class:`~repro_torch.kernels.flash_attention.FlashAttention`). The metrics
 stay 0-dim tensors on the device; :func:`train` reads them on the host only
 at its log steps, as ``repro``'s loop does.
+
+On a mesh the same step is one rank's local program of ``repro``'s SPMD
+step (the parameters placed by ``launch.shardings.place_params``, the batch
+this rank's rows): the gradients that a split region leaves partial are
+all-reduced over the model axis, every gradient is averaged over the batch
+axes, the metrics are the whole batch's and the clip reads the global norm.
+With gradient accumulation the batch-axis all-reduce runs once a step, after
+the micro-batches' sum; an FSDP block's reduce-scatter is its all-gather's
+backward, in each micro-batch's backward.
 """
 from __future__ import annotations
 
@@ -20,6 +29,8 @@ from typing import Any, Callable, Optional, Union
 import torch
 
 from ..configs.base import ArchConfig
+from ..distributed import sharding as sh
+from ..launch import shardings as _sh
 from ..models.model import Model, build_model
 from ..optim.adamw import AdamW, AdamWState
 from ..optim.schedule import warmup_cosine
@@ -43,25 +54,142 @@ def make_optimizer(tc: TrainConfig) -> AdamW:
     )
 
 
-def make_train_step(model: Model, opt: AdamW, *, remat: bool = True) -> Callable:
+def make_train_step(model: Model, opt: AdamW, *, remat: bool = True,
+                    specs: Optional[dict[str, tuple]] = None,
+                    state_specs: Optional[dict[str, tuple]] = None,
+                    accum_steps: int = 1) -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), with the parameters and the state updated in place; metrics
     ``loss``, ``ce``, ``nll``, ``aux``, ``grad_norm`` and ``lr`` as 0-dim
-    tensors. ``batch`` holds tensors on the model's device."""
+    tensors. ``batch`` holds tensors on the model's device. After the step
+    each parameter's ``grad`` holds the gradient the update read, in the
+    parameter's dtype.
+
+    ``accum_steps`` cuts the batch into that many micro-batches of equal
+    rows: their gradients are summed in f32 and divided by the count, and
+    the loss is their mean (``repro``'s dry-run knob).
+
+    ``specs`` (what ``place_params`` returned for ``params``) makes it the
+    rank's program on the current mesh (``sharding.use_mesh``), ``batch``
+    this rank's rows of the rules' ``"batch"`` axes:
+
+    - a family with no local program (hybrid, xlstm) gathers its blocks
+      first and keeps its block of each gradient (the model ranks compute
+      the same one), or reduce-scatters it over the data axes of an FSDP
+      placement;
+    - the gradients of ``partial_grad_names`` are all-reduced over the model
+      axis;
+    - each gradient is summed over the batch axes (all-reduced, where the
+      FSDP all-gather's backward has not reduce-scattered it) and divided by
+      their size: the mean over the whole batch;
+    - the metrics are averaged over the batch axes in one all-reduce, so
+      every rank reports the whole batch's loss, and the update's clip reads
+      the global norm (``AdamW.update``'s ``specs``).
+
+    ``state_specs`` places the optimizer state apart from whole parameters
+    (ZeRO-1: the state made by ``opt.init(params, state_specs)``): the
+    update reads this rank's block of each averaged gradient and
+    all-gathers the parameters."""
 
     def train_step(params, opt_state: AdamWState, batch):
+        mesh = sh.current_mesh() if specs is not None else None
+        gathered = {}
+        if mesh is not None and not _sh.has_local_program(params):
+            gathered = _sh.gather_params(params, specs)
         params.requires_grad_(True)  # built frozen for serving
         params.zero_grad(set_to_none=True)
-        loss, metrics = model.loss(params, batch, remat=remat)
-        loss.backward()
-        grads = {n: p.grad for n, p in params.named_parameters()}
-        opt_metrics = opt.update(grads, opt_state, params)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        if accum_steps == 1:
+            loss, metrics = model.loss(params, batch, remat=remat)
+            loss.backward()
+            grads = {n: p.grad for n, p in params.named_parameters()}
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["loss"] = loss.detach()
+        else:
+            grads, metrics = _accumulate(model, params, batch, remat, accum_steps)
+        if mesh is not None:
+            seq = batch["tokens"].shape[1] if "tokens" in batch else None
+            grads = _reduce_grads(params, grads, specs, gathered,
+                                  _sh.partial_grad_names(params, seq))
+            if gathered:  # the update runs on the blocks
+                _sh.reshard_params(params, gathered)
+            keys = sorted(metrics)
+            mean = sh.data_mean(torch.stack([metrics[k].float() for k in keys]),
+                                sh.logical_to_spec("batch")[0])
+            metrics = dict(zip(keys, mean.unbind()))
+        named = dict(params.named_parameters())
+        with torch.no_grad():
+            for n, g in grads.items():
+                named[n].grad = None if g is None else g.to(named[n].dtype)
+        if mesh is not None and state_specs is not None:
+            grads = {n: None if g is None else sh.block(g, state_specs[n])
+                     for n, g in grads.items()}
+        opt_metrics = opt.update(grads, opt_state, params,
+                                 specs=(state_specs or specs) if mesh is not None else None)
         metrics.update(opt_metrics)
-        metrics["loss"] = loss.detach()
         return params, opt_state, metrics
 
     return train_step
+
+
+def _accumulate(model: Model, params, batch, remat: bool, n: int):
+    """The gradients (f32) and metrics of ``batch`` as the mean over ``n``
+    micro-batches of its rows, each a forward and backward of its own."""
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(f"{rows} rows do not cut into {n} micro-batches")
+    size = rows // n
+    acc: dict[str, Optional[torch.Tensor]] = {}
+    sums: dict[str, torch.Tensor] = {}
+    for i in range(n):
+        micro = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+        params.zero_grad(set_to_none=True)
+        loss, metrics = model.loss(params, micro, remat=remat)
+        loss.backward()
+        with torch.no_grad():
+            for name, p in params.named_parameters():
+                if p.grad is not None:
+                    acc[name] = p.grad.float() if acc.get(name) is None else acc[name] + p.grad
+                else:
+                    acc.setdefault(name, None)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["loss"] = loss.detach()
+            for k, v in metrics.items():
+                sums[k] = v if k not in sums else sums[k] + v
+    grads = {name: None if g is None else g / n for name, g in acc.items()}
+    return grads, {k: v / n for k, v in sums.items()}
+
+
+@torch.no_grad()
+def _reduce_grads(params, grads: dict, specs: dict, gathered: dict, partial: list[str]) -> dict:
+    """Each rank's gradients as the whole batch's mean of the whole
+    model's: partial sums all-reduced over the model axis, blocks kept of
+    gathered parameters, sums over the batch axes divided by their size."""
+    mesh = sh.current_mesh()
+    batch = sh.logical_to_spec("batch")[0]
+    batch_axes = (batch,) if isinstance(batch, str) else tuple(batch or ())
+    n = sh.mesh_size(mesh, batch)
+    partial = set(partial)
+    out = {}
+    for name, g in grads.items():
+        if g is None:
+            out[name] = None
+            continue
+        if name in partial:
+            g = sh.all_reduce(g, sh.MODEL_AXIS)
+        summed: set[str] = set()
+        for dim, entry in enumerate(specs[name]):
+            if entry is None or entry == sh.MODEL_AXIS:
+                if entry is not None and name in gathered:  # the same on every model rank
+                    g = sh.local_block(g, dim, entry)
+                continue
+            if name in gathered:
+                g = sh.reduce_scatter(g, dim, entry)
+            summed.update((entry,) if isinstance(entry, str) else entry)
+        rest = tuple(a for a in batch_axes if a not in summed)
+        if rest:
+            g = sh.all_reduce(g, rest)
+        out[name] = (g / n if n > 1 else g).contiguous()
+    return out
 
 
 def to_device(batch: dict, device: torch.device) -> dict[str, torch.Tensor]:

@@ -25,11 +25,30 @@ from repro_torch.models import attention as tattn
 from repro_torch.models.layers import gather_logits
 from repro_torch.models.model import build_model, greedy_token
 from repro_torch.models.ssm import slstm_scan
+from repro_torch.optim.adamw import AdamW
+from repro_torch.train.loop import make_train_step
 
 # rtol 1e-5; atol 1e-5 of the largest |value| (logits of about 20 sum
 # thousands of f32 products, in another order on each side)
 RTOL = 1e-5
 STEPS = 8
+# the train cases: a whole batch of TRAIN_B rows of TRAIN_S tokens (S splits
+# over a model axis of 2 for seq_parallel), clip_norm CLIP x the reference's
+# norm, so that the clip binds. AdamW's first update is lr x g / (|g| + eps),
+# which divides out each element's size: at the default eps (1e-8) an element
+# near zero, whose f32 rounding differs between summation orders (the port
+# alone against the reference, with no mesh, already differs so), moves its
+# parameter by up to lr. TRAIN_EPS (1e-4, under a hundredth of the clipped
+# gradient's large elements) keeps the update a smooth function of the
+# gradient, so the parameters after the step are held at the gradients'
+# tolerance
+TRAIN_B, TRAIN_S, TRAIN_LR, TRAIN_EPS, CLIP = 4, 10, 1e-3, 1e-4, 0.1
+KNOBS = ("dp_only", "fsdp", "dp_only_fsdp", "seq_parallel", "accum_steps")
+# the MoE's own paths under the knobs: the router and its aux read the whole
+# sequence, the experts' FSDP blocks are gathered (accumulation differs from
+# the whole-batch step there: the aux is not linear in the batch)
+MOE_KNOBS = ("fsdp", "seq_parallel")
+ENCDEC, ENCDEC_KNOBS = "whisper-small", ("fsdp", "seq_parallel")
 
 
 def _close(got: torch.Tensor, want: np.ndarray, what: str) -> None:
@@ -64,6 +83,84 @@ def tp_decode(d: Path, arch: str) -> None:
         logits = gather_logits(params, logits)
         _close(logits, ref["steps"][t][rows], f"{arch} step {t}")
         tok = greedy_token(logits)
+
+
+def decode_tokens(d: Path, arch: str) -> None:
+    """``Model.decode_tokens`` itself (the greedy loop that the card
+    captures) on the placed model after ``prefill``: the reference's greedy
+    tokens on this rank's rows, the logits gathered over the vocab first."""
+    ref = np.load(d / f"{arch}.npz")
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    params.load_state_dict(torch.load(d / f"{arch}.pt"))
+    mesh = sh.current_mesh()
+    shardings.place_params(params, cfg, mesh)
+    assert params.tp.out_vocab, "this mesh does not split the vocab"
+    B = ref["tokens"].shape[0]
+    n = sh.mesh_size(mesh, "data")
+    rows = slice(sh.coordinate("data") * (B // n), (sh.coordinate("data") + 1) * (B // n))
+    cache, _ = shardings.place_cache(model.init_cache(B, int(ref["max_len"])), cfg, mesh)
+    logits, cache = model.prefill(params, {"tokens": torch.tensor(ref["tokens"][rows])}, cache)
+    tok = greedy_token(gather_logits(params, logits)[:, -1:])
+    out, cache = model.decode_tokens(params, cache, tok, STEPS - 1)
+    got = torch.cat([tok, out], 1).numpy()
+    np.testing.assert_array_equal(got, ref["tokens_out"][:, rows].T, err_msg=f"{arch} tokens")
+
+
+def _batch_rows(n_rows: int) -> slice:
+    """This rank's rows of a batch split over the rules' batch axes."""
+    entry = sh.logical_to_spec("batch")[0]
+    n = sh.mesh_size(sh.current_mesh(), entry)
+    i = sh.coordinate(entry) if n > 1 else 0
+    return slice(i * (n_rows // n), (i + 1) * (n_rows // n))
+
+
+def train_step(d: Path, arch: str, knob: str = "") -> None:
+    """One step of ``make_train_step`` on the placed model, this rank's rows
+    of the batch, under the dry-run's ``knob``: the reference's loss and
+    global ``grad_norm``, and every gradient and post-step parameter,
+    gathered over the axes that split it, equal to the reference's."""
+    suffix = "-accum_steps" if knob == "accum_steps" else ""
+    ref = np.load(d / f"train_{arch}{suffix}.npz")
+    cfg = get_smoke_config(arch)
+    mesh = sh.current_mesh()
+    rules = shardings.make_rules(cfg, mesh)
+    if knob == "seq_parallel":
+        rules["seq"] = shardings.MODEL_AXIS
+    dp_only, fsdp = knob.startswith("dp_only"), knob.endswith("fsdp")
+    if dp_only:
+        rules = shardings.dp_only_rules(mesh, TRAIN_B)
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    params.load_state_dict(torch.load(d / f"{arch}.pt"))
+    with sh.use_mesh(mesh, rules):
+        specs = shardings.place_params(params, cfg, mesh, replicate=dp_only, fsdp=fsdp)
+        rows = _batch_rows(TRAIN_B)
+        batch = {k: torch.tensor(ref[k][rows]) for k in ("tokens", "labels", "frames")
+                 if k in ref}
+        opt = AdamW(learning_rate=TRAIN_LR, eps=TRAIN_EPS, clip_norm=float(ref["clip_norm"]))
+        # ZeRO-1 under dp_only_fsdp: whole parameters, the state split as FSDP splits it
+        state_specs = (shardings.param_specs(params, cfg, mesh, fsdp=True)
+                       if dp_only and fsdp else None)
+        state = opt.init(params, state_specs)
+        step = make_train_step(model, opt, specs=specs, state_specs=state_specs,
+                               accum_steps=2 if knob == "accum_steps" else 1)
+        sh.reset_comm_counters()
+        _, _, metrics = step(params, state, batch)
+        if knob == "dp_only":
+            assert sh.comm_counts["all-gather"] == sh.comm_counts["reduce-scatter"] == 0
+        if state_specs is not None:
+            assert state.master["embed"].numel() * 4 == params.embed.numel(), "state not split"
+        _close(metrics["loss"], ref["loss"], f"{arch} {knob} loss")
+        _close(metrics["grad_norm"], ref["grad_norm"], f"{arch} {knob} grad_norm")
+        want_g = torch.load(d / f"train_{arch}{suffix}_grads.pt")
+        want_p = torch.load(d / f"train_{arch}{suffix}_params.pt")
+        for name, p in params.named_parameters():
+            _close(sh.gather_block(p.grad, specs[name]), want_g[name].detach().numpy(),
+                   f"{arch} {knob} gradient {name}")
+            _close(sh.gather_block(p.detach(), specs[name]),
+                   want_p[name].detach().numpy(), f"{arch} {knob} parameter {name}")
 
 
 def whole_rows_decode(d: Path, arch: str) -> None:
@@ -172,6 +269,16 @@ CASES = {
     "shard_map_decode[prefix]": lambda d: shard_map_decode(d, "prefix"),
     "shard_map_decode[window]": lambda d: shard_map_decode(d, "window"),
     "slstm_branch": slstm_branch,
+    "decode_tokens[llama3.2-1b]": lambda d: decode_tokens(d, "llama3.2-1b"),
+    "train_step[llama3.2-1b]": lambda d: train_step(d, "llama3.2-1b"),
+    "train_step[granite-moe-1b-a400m]": lambda d: train_step(d, "granite-moe-1b-a400m"),
+    **{f"train_step[llama3.2-1b-{k}]": (lambda d, k=k: train_step(d, "llama3.2-1b", k))
+       for k in KNOBS},
+    **{f"train_step[granite-moe-1b-a400m-{k}]":
+       (lambda d, k=k: train_step(d, "granite-moe-1b-a400m", k)) for k in MOE_KNOBS},
+    f"train_step[{ENCDEC}]": lambda d: train_step(d, ENCDEC),
+    **{f"train_step[{ENCDEC}-{k}]": (lambda d, k=k: train_step(d, ENCDEC, k))
+       for k in ENCDEC_KNOBS},
 }
 
 

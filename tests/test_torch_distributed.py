@@ -19,7 +19,22 @@ with 4 ranks llama's cache splits over head_dim, with 2 over kv heads) and
   step through the length-sharded flash-decode, the same logits and tokens;
 - the sLSTM cell on each data rank's batch block (the local program is
   ``repro``'s shard_map branch): ``repro``'s ``slstm_scan``;
-- ``CACHE_UPDATE_MODE = "onehot"``: the scatter update's logits, bitwise.
+- ``CACHE_UPDATE_MODE = "onehot"``: the scatter update's logits, bitwise;
+- ``Model.decode_tokens`` itself on (1, 2), where llama's logits split over
+  the vocab: ``repro``'s greedy tokens;
+- one train step (``train.loop.make_train_step``) of llama3.2-1b and
+  granite-moe-1b-a400m on (2, 2), tensor and data parallel, a whole batch
+  of 4 rows, the clip binding (``clip_norm`` 0.1 of the reference's norm):
+  ``repro``'s loss, ``grad_norm``, every gradient and every parameter after
+  ``repro``'s AdamW step, gathered; and llama's step under each of the
+  dry-run's knobs (``dp_only``, ``fsdp``, both at once (ZeRO-1),
+  ``seq_parallel``, and ``accum_steps`` 2 against ``repro``'s mean over its
+  two micro-batches), and granite's under ``fsdp`` and ``seq_parallel``
+  (the MoE's router and aux read the whole sequence); whisper-small's step
+  (64 frames, f32 frames in the batch) as it is and under ``fsdp`` and
+  ``seq_parallel`` (the encoder's frames split too, its output gathered for
+  every cross-attention). Tolerances as above, each tensor against its own
+  largest |value|; AdamW's eps as ``_torch_dist_workers.TRAIN_EPS`` says.
 
 Each mesh's ranks are spawned once, with a join timeout of their own.
 """
@@ -40,6 +55,7 @@ from repro.configs.registry import get_smoke_config as jax_smoke_config
 from repro.models import attention as jattn
 from repro.models.model import build_model as jax_build_model
 from repro.models.ssm import slstm_scan as jax_slstm_scan
+from repro.optim.adamw import AdamW as JaxAdamW
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.models.convert import load_jax_params
 from repro_torch.models.model import build_model
@@ -50,10 +66,15 @@ JOIN_TIMEOUT_S = 120
 
 DECODE = [f"decode[{a}]" for a in ARCHS]
 SHARD_MAP = ["shard_map_decode[prefix]", "shard_map_decode[window]"]
+TRAIN = [f"train_step[{a}]" for a in ARCHS]
+KNOBS = ([f"train_step[llama3.2-1b-{k}]" for k in workers.KNOBS]
+         + [f"train_step[granite-moe-1b-a400m-{k}]" for k in workers.MOE_KNOBS]
+         + [f"train_step[{workers.ENCDEC}]"]
+         + [f"train_step[{workers.ENCDEC}-{k}]" for k in workers.ENCDEC_KNOBS])
 MESHES = {
-    (1, 2): DECODE + ["onehot_equals_scatter"] + SHARD_MAP,
+    (1, 2): DECODE + ["onehot_equals_scatter", "decode_tokens[llama3.2-1b]"] + SHARD_MAP,
     (1, 4): DECODE + ["decode_whole_rows[llama3.2-1b]"] + SHARD_MAP,
-    (2, 2): DECODE + ["slstm_branch"],
+    (2, 2): DECODE + ["slstm_branch"] + TRAIN + KNOBS,
 }
 
 
@@ -80,6 +101,52 @@ def _write_model_refs(d: Path, arch: str) -> None:
         tok = np.argmax(steps[-1][:, 0], axis=-1).astype(np.int32)
     np.savez(d / f"{arch}.npz", tokens=tokens, max_len=MAX_LEN, prefill=prefill,
              steps=np.stack(steps), tokens_out=np.stack(toks))
+
+
+def _write_train_refs(d: Path, arch: str) -> None:
+    """``repro``'s loss, gradients and one AdamW step from the weights of
+    ``_write_model_refs``, on a whole batch of ``TRAIN_B`` rows, with the
+    clip binding; for llama also the mean over two micro-batches, as
+    ``repro``'s dry-run accumulates. Gradients and parameters go to the
+    ranks by the port's names."""
+    jcfg = jax_smoke_config(arch)
+    jm = jax_build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    rs = np.random.RandomState(17)
+    batch = {k: rs.randint(0, jcfg.vocab, (workers.TRAIN_B, workers.TRAIN_S)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    if jcfg.family == "encdec":
+        batch["frames"] = rs.randn(workers.TRAIN_B, jcfg.encoder_frames,
+                                   jcfg.d_model).astype(np.float32)
+
+    def value_and_grad(rows):
+        b = {k: jnp.asarray(v[rows]) for k, v in batch.items()}
+        (loss, _), g = jax.value_and_grad(lambda p: jm.loss(p, b, remat=True), has_aux=True)(jp)
+        return loss, g
+
+    tm = build_model(get_smoke_config(arch), device="cpu")
+    if not (d / f"{arch}.pt").exists():
+        params = load_jax_params(tm.init(1), jax.tree_util.tree_map(np.asarray, jp))
+        torch.save(params.state_dict(), d / f"{arch}.pt")
+    variants = {"": [slice(None)]}
+    if arch == "llama3.2-1b":
+        half = workers.TRAIN_B // 2
+        variants["-accum_steps"] = [slice(0, half), slice(half, None)]
+    for suffix, micro in variants.items():
+        outs = [value_and_grad(rows) for rows in micro]
+        loss = np.mean([float(o[0]) for o in outs])
+        grads = jax.tree_util.tree_map(lambda *g: sum(x.astype(jnp.float32) for x in g) / len(g),
+                                       *[o[1] for o in outs])
+        norm = float(jnp.sqrt(sum(jnp.sum(jnp.square(g)) for g in jax.tree.leaves(grads))))
+        opt = JaxAdamW(learning_rate=workers.TRAIN_LR, eps=workers.TRAIN_EPS,
+                       clip_norm=workers.CLIP * norm)
+        new, _, om = opt.update(grads, opt.init(jp), jp)
+        assert float(om["grad_norm"]) > opt.clip_norm, "the clip must bind"
+        for name, tree in (("grads", grads), ("params", new)):
+            module = load_jax_params(tm.init(1), jax.tree_util.tree_map(np.asarray, tree))
+            torch.save(dict(module.named_parameters()), d / f"train_{arch}{suffix}_{name}.pt")
+        np.savez(d / f"train_{arch}{suffix}.npz", **batch, loss=loss,
+                 grad_norm=float(om["grad_norm"]), clip_norm=opt.clip_norm)
 
 
 def _write_attention_ref(d: Path, case: str) -> None:
@@ -112,6 +179,8 @@ def refs(tmp_path_factory):
     d = tmp_path_factory.mktemp("dist_refs")
     for arch in ARCHS:
         _write_model_refs(d, arch)
+        _write_train_refs(d, arch)
+    _write_train_refs(d, workers.ENCDEC)
     for case in ("prefix", "window"):
         _write_attention_ref(d, case)
     _write_slstm_ref(d)

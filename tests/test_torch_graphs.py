@@ -16,11 +16,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 
 from repro.configs.registry import get_smoke_config as jax_smoke_config
 from repro.models.model import build_model as jax_build_model
 from repro_torch.configs.registry import get_smoke_config
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import _build
+from repro_torch.launch import shardings
+from repro_torch.models import attention
 from repro_torch.models.convert import load_jax_params
 from repro_torch.models.model import build_model
 from repro_torch.serving.backend import ModelServingBackend, ServeRequest, _bucket
@@ -132,16 +137,20 @@ def test_recording_restores_counters_and_replays_count_what_was_recorded():
         _build.launches["decode_attention"] += 16
         _build.launches["flash_attention"] += 2
         _build.plain["matmul"] += 1
+        _build.form_launches["decode_attention_lse"] += 4  # K3's log-sum-exp form
     assert recorded == {
         "launches": {"matmul": 0, "flash_attention": 2, "decode_attention": 16},
         "plain": {"matmul": 1, "flash_attention": 0, "decode_attention": 0},
+        "form_launches": {"decode_attention_lse": 4},
+        "form_plain": {"decode_attention_lse": 0},
     }
     assert _build.launches == {"matmul": 5, "flash_attention": 0, "decode_attention": 0}
-    assert sum(_build.plain.values()) == 0
+    assert sum(_build.plain.values()) == 0 and sum(_build.form_launches.values()) == 0
     for _ in range(3):
         _build.replayed(recorded)
     assert _build.launches == {"matmul": 5, "flash_attention": 6, "decode_attention": 48}
     assert _build.plain == {"matmul": 3, "flash_attention": 0, "decode_attention": 0}
+    assert _build.form_launches == {"decode_attention_lse": 12}
     _build.reset_counters()
 
 
@@ -152,3 +161,52 @@ def test_recording_restores_counters_when_the_capture_raises():
             _build.launches["decode_attention"] += 16
             raise RuntimeError("capture failed")
     assert sum(_build.launches.values()) == 0
+
+
+def test_graph_key_names_the_placement(tmp_path):
+    """On a one-rank gloo mesh, llama placed for the length-sharded decode
+    keeps every weight tensor (a block of the whole shape is not replaced),
+    so the weights cannot tell its graphs from the unplaced model's: the key
+    does (mesh shape, each attention's cache dim, the decode mode), over the
+    whole cache's rows, and the static cache is a placed one of its own. The
+    greedy loop on it (eager here) gives the unplaced model's tokens."""
+    cfg = get_smoke_config("llama3.2-1b")
+    m = build_model(cfg, device="cpu")
+    params = m.init(0)
+    rows, T = 32, 6
+    prompt = torch.tensor(np.random.RandomState(5).randint(0, cfg.vocab, (1, 11)),
+                          dtype=torch.int32)
+
+    def greedy(params_, cache):
+        logits, cache = m.prefill_jit(params_, {"tokens": prompt}, cache)
+        return m.decode_tokens(params_, cache, prompt[:, -1:], T)[0]
+
+    key = m.graph_key("decode", params, m.init_cache(1, rows), 1, T)
+    assert key == ("decode", 1, rows, T)
+    want = greedy(params, m.static_cache(1, rows))
+    weights = [p.data_ptr() for p in params.parameters()]
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    knobs = (attention.DECODE_ATTN_MODE, shardings.FORCE_SEQ_SHARD_CACHE)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        attention.DECODE_ATTN_MODE, shardings.FORCE_SEQ_SHARD_CACHE = "shard_map", True
+        with sh.use_mesh(mesh, shardings.make_rules(cfg, mesh)):
+            shardings.place_params(params, cfg, mesh)
+            assert [p.data_ptr() for p in params.parameters()] == weights
+            cache, _ = shardings.place_cache(m.init_cache(1, rows), cfg, mesh)
+            placed = m.graph_key("decode", params, cache, 1, T)
+            assert placed[:4] == key and placed != key
+            assert placed[4] == (("data", "model"), (1, 1), (2,) * cfg.n_layers, "shard_map")
+            static = m.static_cache(1, rows, params)
+            assert static is not m.static_cache(1, rows)
+            assert static is m.static_cache(1, rows, params)
+            _build.reset_counters()
+            got = greedy(params, static)
+            assert _build.form_plain["decode_attention_lse"] == cfg.n_layers * T
+            assert _build.plain["decode_attention"] == 0
+    finally:
+        attention.DECODE_ATTN_MODE, shardings.FORCE_SEQ_SHARD_CACHE = knobs
+        dist.destroy_process_group()
+        _build.reset_counters()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -350,3 +350,60 @@ print("ok")
     print(out.stdout)
     assert out.returncode == 0, out.stderr[-4000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_captured_sharded_decode_equals_the_unsharded_one():
+    """llama on a one-rank ("data", "model") NCCL mesh with the
+    length-sharded flash-decode, captured: tokens bitwise the unsharded
+    captured path's, after it captured its own graphs (the placement is in
+    the key: at size 1 the weights are the same tensors), K3's log-sum-exp
+    form on every replayed step, no plain call, no collective."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import shardings
+    from repro_torch.models import attention
+
+    m = _model()
+    params = m.init(0)
+    L, T, rows = m.cfg.n_layers, 8, 64
+    prompts = [_prompt(S, m.cfg.vocab, S) for S in (20, 33)]
+
+    def serve(cache):
+        out = []
+        for prompt in prompts:
+            m.prefill_jit(params, {"tokens": prompt}, cache)
+            out.append(m.decode_tokens(params, cache, prompt[:, -1:], T)[0])
+        return out
+
+    want = serve(m.static_cache(1, rows))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    knobs = (attention.DECODE_ATTN_MODE, shardings.FORCE_SEQ_SHARD_CACHE)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        attention.DECODE_ATTN_MODE, shardings.FORCE_SEQ_SHARD_CACHE = "shard_map", True
+        with sh.use_mesh(mesh, shardings.make_rules(m.cfg, mesh)):
+            shardings.place_params(params, m.cfg, mesh)
+            cache, _ = shardings.place_cache(m.init_cache(1, rows), m.cfg, mesh)
+            _build.reset_counters()
+            sh.reset_comm_counters()
+            got = serve(cache)
+            assert _build.form_launches["decode_attention_lse"] == len(prompts) * L * T
+            assert _build.launches == {"matmul": 0, "flash_attention": len(prompts) * L,
+                                       "decode_attention": 0}
+            assert sum(_build.plain.values()) == sum(_build.form_plain.values()) == 0
+            assert sum(sh.comm_counts.values()) == 0
+    finally:
+        attention.DECODE_ATTN_MODE, shardings.FORCE_SEQ_SHARD_CACHE = knobs
+        dist.destroy_process_group()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    decode = [k for k in m.graphs.graphs if k[0] == "decode"]
+    assert len(decode) == 2 and len({k[:4] for k in decode}) == 1
+    assert m.graph_stats["dropped"] == 0

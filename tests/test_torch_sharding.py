@@ -227,7 +227,10 @@ mesh = make_production_mesh(device_type="cpu")
 with sh.use_mesh(mesh, {"seq": "model", "batch": None}):
     x = torch.ones(2, 1, 8)
     assert sh.shard(x, "batch", "seq", None).shape == x.shape      # 1 row: kept whole
-    assert sh.shard(torch.ones(2, 32, 8), "batch", "seq", None).shape == (2, 2, 8)
+    # the programs split a sequence-parallel stream themselves (the recurrent
+    # families keep theirs whole): shard leaves it as it is
+    assert sh.shard(torch.ones(2, 32, 8), "batch", "seq", None).shape == (2, 32, 8)
+    assert sh.seq_parallel(32) and not sh.seq_parallel(1) and not sh.seq_parallel(24)
     assert sh.logical_to_spec("batch", None, "heads", None) == (None, None, "model", None)
 with sh.use_mesh(mesh):
     assert sh.shard(torch.ones(2, 3, 32, 5), "batch", None, "expert", None).shape == (2, 3, 2, 5)
