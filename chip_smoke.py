@@ -172,6 +172,19 @@ Run from the root of a checkout. It imports ``src/repro_torch`` (never
    replays, no plain call, no collective, and one decode graph for the
    sharded bucket apart from the unsharded one's.
 
+13. the recurrent families placed (M11b-4): full-width zamba2-1.2b (38
+   Mamba2 layers, the shared block after 6 of its 7 groups, bf16) on a
+   (1, 1) ("data", "model") NCCL mesh, placed with ``place_params`` and
+   ``place_cache``: phase 10a's requests through ``prefill_jit`` and
+   ``decode_tokens`` (CUDA graphs of the placed model on its placed static
+   cache), tokens bitwise the unsharded captured path's (captured before the
+   mesh existed), K2 and K3 launched exactly as often as there, no plain
+   call, no collective, one decode graph for each bucket; then full-width
+   xlstm-1.3b the same way (no kernel launched). At one rank every split is
+   trivial: the gloo cases of the CPU tests hold the split arithmetic; this
+   holds the placed path's capture, cache placement and launches. The
+   captured ms a decode step of each, sharded beside unsharded, in turns.
+
 It exits non-zero, printing no result, if there is no CUDA device or any
 phase fails. Its last two lines are the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -3095,6 +3108,165 @@ def multidevice_phase(args, card_str, main_shapes):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the recurrent families placed (M11b-4)
+# ---------------------------------------------------------------------------
+
+
+def placed_recurrent(arch, args, card_str, mesh, ServeRequest):
+    """13a/13b: ``arch`` at full width served captured, unsharded (outside
+    the mesh, before placement) and then placed on ``mesh``, phase 10a's
+    requests; holds tokens bitwise, launches equal, no plain call, no
+    collective and one decode graph a bucket; then the captured step's ms in
+    turns. Returns (the placed run's launches, the longest prompt)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import _build
+    from repro_torch.launch import shardings
+    from repro_torch.models.layers import gather_logits
+    from repro_torch.models.model import build_model, greedy_token
+    from repro_torch.serving.backend import _bucket
+
+    ph = "13a" if arch == ZAMBA else "13b"
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    steps = args.new_tokens
+    reqs = make_requests(cfg, args.requests, steps, args.seed, ServeRequest)
+    rows = _bucket(max(len(r.prompt) for r in reqs) + steps, base=8)
+    model = build_model(cfg)
+    params = model.init(args.seed)
+
+    def run_captured(req, cache):
+        logits, _ = model.prefill_jit(params, {"tokens": prompt_of(req)}, cache)
+        tok = greedy_token(gather_logits(params, logits))
+        out, _ = model.decode_tokens(params, cache, tok, steps)
+        return torch.cat([tok, out], 1)
+
+    def counted(fn):
+        _build.reset_counters()
+        sh.reset_comm_counters()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, {
+            "launches": dict(_build.launches), "plain": dict(_build.plain),
+            "form_launches": dict(_build.form_launches), "form_plain": dict(_build.form_plain),
+            "collectives": dict(sh.comm_counts)}
+
+    want, wall_plain, base = counted(lambda: [run_captured(r, model.static_cache(1, rows))
+                                              for r in reqs])
+    # zamba2: K2 once an application of the shared block a request, K3 once
+    # an application a decode step; xlstm: no kernel
+    n_attn = cfg.n_layers // cfg.hybrid_attn_every if cfg.hybrid_attn_every else 0
+    expected = {"matmul": 0, "flash_attention": n_attn * len(reqs),
+                "decode_attention": n_attn * len(reqs) * steps}
+    if base["launches"] != expected or sum(base["plain"].values()):
+        raise PhaseError(f"{arch}: unsharded captured counts {base}; expected {expected}")
+    decode_before = [k for k in model.graphs.graphs if k[0] == "decode"]
+    with sh.use_mesh(mesh, shardings.make_rules(cfg, mesh)):
+        shardings.place_params(params, cfg, mesh)
+        before = dict(model.graph_stats)
+        static = model.static_cache(1, rows, params)
+        got, wall, counts = counted(lambda: [run_captured(r, static) for r in reqs])
+        new = {k: v - before[k] for k, v in model.graph_stats.items()}
+        decode_keys = [k for k in model.graphs.graphs if k[0] == "decode"]
+        print(json.dumps({"counters": {"path": f"captured placed {arch}", **counts}}))
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        plain = sum(counts["plain"].values()) + sum(counts["form_plain"].values())
+        split = sum(m.tp is not None and (m.tp.heads or m.tp.inner) for m in params.modules()
+                    if "tp" in vars(m))
+        print(f"[{ph}] {arch} full width ({cfg.n_layers} layers, bf16) placed on the (1, 1) "
+              f"mesh ({split} blocks marked split), captured: {len(reqs)} requests through "
+              f"prefill_jit and decode_tokens ({steps} greedy steps, one {rows}-row placed "
+              f"static cache); tokens identical to the unsharded captured path: {same}; "
+              f"launches {counts['launches']} against unsharded {base['launches']}, plain "
+              f"{plain}, collectives {sum(counts['collectives'].values())}; graphs: "
+              f"{new['captures']} captured, {new['replays']} replayed, {new['dropped']} dropped; "
+              f"decode graphs {len(decode_keys)}; wall {wall:.2f} s placed, {wall_plain:.2f} s "
+              f"unsharded (captures included) ({card_str})")
+        if not same or not all(torch.isfinite(t.float()).all() for t in got):
+            raise PhaseError(f"{arch}: the placed captured path disagrees with the unsharded one")
+        if (counts["launches"] != base["launches"] or plain or counts["form_launches"] !=
+                base["form_launches"] or sum(counts["collectives"].values())):
+            raise PhaseError(f"{arch}: placed counts {counts}; expected the unsharded path's "
+                             f"launches {base}, no plain call, no collective")
+        if (len(decode_before) != 1 or len(decode_keys) != 2 or new["dropped"]
+                or len({k[:4] for k in decode_keys}) != 1):
+            raise PhaseError(f"{arch}: expected one decode graph for each of the unsharded and "
+                             f"the placed bucket: before {decode_before}, after {decode_keys}")
+    # 13c: one request's captured decode step, unsharded (the graphs captured
+    # before placement: at one rank the placed weights are the same tensors)
+    # and placed (in the mesh) in turns
+    placed = {m: m.tp for m in params.modules() if "tp" in vars(m)}
+    prompt = prompt_of(max(reqs, key=lambda r: len(r.prompt)))
+
+    def turn(sharded):
+        for m, tp in placed.items():
+            m.tp = tp if sharded else None
+        with (sh.use_mesh(mesh, shardings.make_rules(cfg, mesh)) if sharded
+              else contextlib.nullcontext()):
+            cache = model.static_cache(1, rows, params if sharded else None)
+            logits, _ = model.prefill_jit(params, {"tokens": prompt}, cache)
+            tok = greedy_token(gather_logits(params, logits))
+            model.decode_tokens(params, cache, tok, steps)
+            cache["lengths"].fill_(prompt.shape[1])
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            model.decode_tokens(params, cache, tok, steps)
+            end.record()
+            end.synchronize()
+        return start.elapsed_time(end) / steps
+
+    captures = model.graph_stats["captures"]
+    turns = [("unsharded", turn(False)), ("placed", turn(True)), ("placed", turn(True)),
+             ("unsharded", turn(False))]
+    print(f"[13c] {arch} captured decode step of one {prompt.shape[1]}-token request "
+          f"({steps}-step graph, {rows}-row cache), CUDA events around the replay, in "
+          f"turns: " + ", ".join(f"{k} {v:.4f} ms" for k, v in turns) + f"; graphs captured "
+          f"for the turns {model.graph_stats['captures'] - captures} ({card_str})")
+    for m in params.modules():
+        if "tp" in vars(m):
+            del m.tp
+    print(f"[{ph}] {arch} took {time.perf_counter() - t0:.1f} s")
+    del model, params, static, got, want
+    torch.cuda.empty_cache()
+    return counts["launches"], prompt.shape[1]
+
+
+def placed_phase(args, card_str):
+    """Phase 13: zamba2-1.2b and xlstm-1.3b placed on a (1, 1) NCCL mesh,
+    captured, against their unsharded captured paths; the kernels line's
+    entries for zamba2's placed K2 and K3."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serving.backend import ServeRequest, _bucket
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        launches, S = placed_recurrent(ZAMBA, args, card_str, mesh, ServeRequest)
+        xlstm_launches, _ = placed_recurrent(XLSTM, args, card_str, mesh, ServeRequest)
+    finally:
+        dist.destroy_process_group()
+    if any(xlstm_launches.values()):
+        raise PhaseError(f"{XLSTM} launched kernels {xlstm_launches}; its path has none")
+    cfg = get_config(ZAMBA)
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    tb = _bucket(args.new_tokens, base=8)
+    kernels = report_rows(
+        [("flash_attention", flash_row((1, H, K, S, hd), window=cfg.sliding_window)),
+         ("decode_attention", decode_row((1, H, K, _bucket(S + tb, base=8), hd), S + tb // 2))],
+        launches, card_str, "13d", suffix=f"[{ZAMBA}, placed]")
+    torch.cuda.empty_cache()
+    print(f"[13] phase 13 took {time.perf_counter() - t0:.1f} s")
+    return kernels
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # seed 2: the gated arm's first cold replicas fail the gate, so a run shows
@@ -3212,6 +3384,9 @@ def main() -> int:
 
     # 12. multi-device and launch
     kernels += multidevice_phase(args, card_str, main_shapes)
+
+    # 13. the recurrent families placed
+    kernels += placed_phase(args, card_str)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_str)

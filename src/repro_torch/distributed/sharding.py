@@ -91,7 +91,16 @@ class TensorParallel:
     ``heads`` (wq, wo), ``kv`` (wk, wv) and ``cache_dim``, the dim of its
     per-layer ``(B, K, S, hd)`` cache that the model axis shards (1, 2, 3 or
     None); SwiGLU: ``ff``; MoE: ``experts``; the model: ``vocab`` (the
-    embedding's rows) and ``out_vocab`` (the logits' columns)."""
+    embedding's rows) and ``out_vocab`` (the logits' columns).
+
+    A recurrent block's parts split together or not at all: a Mamba2
+    block's ``heads`` (its SSD state ``h`` over heads, the causal conv's
+    channels: ``conv_w``, ``conv_b`` and the ``conv`` state, and the rows of
+    ``w_out`` and ``ynorm``); an mLSTM block's ``inner`` (the columns of
+    ``w_up``, the input P axis of ``wq``/``wk``/``wv``, the rows of ``w_i``,
+    ``w_f``, ``w_down`` and ``hnorm``, the first P axis of its ``C`` and
+    ``n``); an sLSTM block's ``inner`` (the rows of ``w_out`` and ``hnorm``,
+    the P axis of its states)."""
     heads: bool = False
     kv: bool = False
     cache_dim: Optional[int] = None
@@ -99,6 +108,7 @@ class TensorParallel:
     experts: bool = False
     vocab: bool = False
     out_vocab: bool = False
+    inner: bool = False
 
 
 # the reference's collective kinds (repro/roofline/hlo.py)
@@ -406,6 +416,18 @@ def all_reduce(x: torch.Tensor, entry: Entry = "model", op: str = "sum") -> torc
             raise ValueError(f"all_reduce({op!r}) has no gradient")
         return _SumReduce.apply(x, entry, g)
     return _reduce(x, entry, op, g)
+
+
+def all_reduce_many(tensors: list, entry: Entry = "model") -> list:
+    """Tensors of one dtype summed over the mesh axes ``entry`` names in one
+    collective (flattened, concatenated, all-reduced, split back; as
+    :func:`all_reduce` under autograd); as they are at size 1."""
+    mesh, _ = _current()
+    if mesh_size(mesh, entry) == 1:
+        return list(tensors)
+    flat = all_reduce(torch.cat([t.reshape(-1) for t in tensors]), entry)
+    return [part.view_as(t) for part, t in zip(flat.split([t.numel() for t in tensors]),
+                                               tensors)]
 
 
 def data_mean(x: torch.Tensor, entry: Entry) -> torch.Tensor:

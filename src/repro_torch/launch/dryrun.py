@@ -8,13 +8,14 @@ parameters, optimizer state, batch and cache as rank 0's blocks of ``meta``
 tensors (allocation-free), and runs the step once under the counters of
 :mod:`repro_torch.roofline.count`. So it needs no device and no JAX, and
 ``--device`` does not apply. Argument bytes are exact (the blocks' sizes);
-temp bytes are the peak of the step's op results alive at once. The
-transformer and encoder-decoder families run their tensor-parallel local
-program; the recurrent families (hybrid, xlstm) have none yet, and their
-step all-gathers each model-split block first (and keeps its block of each
-gradient), counted. ``train_4k`` runs the port's one sharded train step
-(``train.loop.make_train_step``): the gradients averaged over the batch axes,
-the loss averaged and the norm global, each collective counted.
+temp bytes are the peak of the step's op results alive at once. Every
+family runs its tensor-parallel local program on its placed blocks, and no
+block split over the model axis is gathered. ``train_4k`` runs the port's
+one sharded train step (``train.loop.make_train_step``): the gradients
+averaged over the batch axes, the loss averaged and the norm global, each
+collective counted. The sLSTM's per-token loop is counted as one token's
+step times the number of tokens (``count(..., scan_once=True)``), as
+``repro``'s counter counts a while loop's body times its trip count.
 
 ``repro``'s hillclimb knobs, all off by default (the paper-faithful
 baseline), each as the local program its SPMD program implies:
@@ -37,7 +38,8 @@ baseline), each as the local program its SPMD program implies:
   encoder-decoder's residual stream is the rank's block of the sequence,
   each activation all-reduce after ``wo``/``w_down`` (and the embedding's)
   a reduce-scatter over it, each split region's entry an all-gather
-  (Korthikanti et al.). The recurrent families keep their whole sequence.
+  (Korthikanti et al.). The recurrent families (hybrid, xlstm) keep their
+  whole sequence; zamba2's shared block reads it whole as well.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
@@ -113,7 +115,6 @@ def build_lowerable(cfg: ArchConfig, shape_name: str, mesh, *, dp_only: bool = F
     params = _FAMILIES[cfg.family][1](cfg, META)
     spec = input_specs(cfg, shape_name)
     specs = _sh.place_params(params, cfg, mesh, replicate=dp_only, fsdp=fsdp)
-    local = _sh.has_local_program(params)
     batch_axes = sh.logical_to_spec("batch")[0]
     batch = _blocks(spec["batch"], {k: _sh.batch_spec(k, tuple(t.shape), mesh, batch_axes)
                                     for k, t in spec["batch"].items()}, mesh)
@@ -146,37 +147,20 @@ def build_lowerable(cfg: ArchConfig, shape_name: str, mesh, *, dp_only: bool = F
 
     def whole_params():
         """The parameters as this rank's program reads them: gathered over
-        the model axis where the family has no local program, over the data
-        axes where FSDP split them."""
-        if not local:
+        the data axes where FSDP split them."""
+        if fsdp:
             _sh.gather_params(params, specs)
-        elif fsdp:
-            _sh.gather_params(params, specs, model=False)
-
-    def with_cache():
-        if local:
-            return cache
-        # a whole model-split state, and this rank's batch rows of a state
-        # whose spec leaves its batch dim whole (the reference's rule for a
-        # rank-3 xlstm state assumes (B, H, P); an mLSTM's m is (count, B, H))
-        full = _sh.gather_tensors(cache, cache_specs)
-        split = sh.logical_to_spec("batch")[0]
-        for name, t in full.items():
-            dim = _batch_dim(name, full)
-            if split is not None and cache_specs[name][dim] is None:
-                full[name] = sh.local_block(t, dim, split)
-        return full
 
     if spec["kind"] == "prefill":
         def prefill_step():
             whole_params()
-            return model.prefill(params, batch, with_cache())[0]
+            return model.prefill(params, batch, cache)[0]
 
         return prefill_step, arg_bytes
 
     def decode_step():
         whole_params()
-        return model.decode_step(params, with_cache(), batch["tokens"])[0]
+        return model.decode_step(params, cache, batch["tokens"])[0]
 
     return decode_step, arg_bytes
 
@@ -227,7 +211,7 @@ def _run_one(arch, shape_name, *, multi_pod, save, verbose, opts, tag) -> dict:
         with sh.use_mesh(mesh, rules):
             fn, arg_bytes = build_lowerable(cfg, shape_name, mesh, dp_only=opts["dp_only"],
                                             fsdp=opts["fsdp"], accum_steps=opts["accum_steps"])
-            out, stats = count(fn)
+            out, stats = count(fn, scan_once=True)
             out_bytes = out.numel() * out.element_size() if out is not None else 0
     except Exception as e:
         if verbose:

@@ -20,12 +20,13 @@ stand for the reference's state-tuple indices ``"0".."3"``.
 
 The tree helpers place a model on a mesh in the local program (Megatron-style
 tensor parallelism): :func:`place_params` replaces each parameter with this
-rank's block and tells the attention, FFN, MoE and embedding code what is
-split (a ``TensorParallel`` on each module), :func:`place_cache` and
-:func:`local_shape` do the same for a cache. The transformer and
-encoder-decoder families run their local program on the placed blocks; the
-recurrent families (hybrid, xlstm) have none yet, and the dry-run gathers
-their blocks before the step (:func:`gather_params`).
+rank's block and tells the attention, FFN, MoE, recurrent-block and
+embedding code what is split (a ``TensorParallel`` on each module),
+:func:`place_cache` and :func:`local_shape` do the same for a cache. Every
+family runs its local program on the placed blocks; no block split over the
+model axis is gathered. :func:`gather_params` gathers an FSDP placement's
+blocks over the data axes, for a prefill or decode step that reads them
+whole.
 """
 from __future__ import annotations
 
@@ -271,9 +272,19 @@ def param_specs(params: nn.Module, cfg: ArchConfig, mesh, *, replicate: bool = F
 
 
 def cache_specs(cache: dict, cfg: ArchConfig, mesh) -> dict:
+    """name -> spec of every entry of the port's ``cache``: :func:`cache_spec`,
+    except an mLSTM's stabiliser ``g{gi}.m`` (count, B, H). The reference's
+    rank-3 rule assumes an sLSTM state (B, H, P); this ``m`` is one scalar a
+    head, the same on every rank that holds a block of the head's P axis, so
+    it splits over the batch alone."""
     data_axes = data_axes_of(mesh)
-    return {name: cache_spec(name, tuple(t.shape), cfg, mesh, data_axes)
-            for name, t in cache.items()}
+    out = {}
+    for name, t in cache.items():
+        if name.endswith(".m") and f"{name[:-2]}.C" in cache:
+            out[name] = _guard((None, data_axes, None), tuple(t.shape), mesh)
+        else:
+            out[name] = cache_spec(name, tuple(t.shape), cfg, mesh, data_axes)
+    return out
 
 
 def local_shape(shape: tuple[int, ...], spec: tuple, mesh) -> tuple[int, ...]:
@@ -281,16 +292,30 @@ def local_shape(shape: tuple[int, ...], spec: tuple, mesh) -> tuple[int, ...]:
     return tuple(d // _mesh_size(mesh, e) for d, e in zip(shape, tuple(spec) + (None,) * len(shape)))
 
 
+def _together(prefix: str, splits: dict) -> bool:
+    """Whether a recurrent block's parts (name -> split over the model axis)
+    are all split; the local program splits them together or not at all."""
+    if len(set(splits.values())) > 1:
+        raise ValueError(f"{prefix}: the model axis splits {sorted(k for k, v in splits.items() if v)}"
+                         f" but not {sorted(k for k, v in splits.items() if not v)}; the local "
+                         f"program splits a recurrent block's parts together")
+    return all(splits.values())
+
+
 def _tensor_parallel(params: nn.Module, specs: dict, cfg: ArchConfig, mesh) -> None:
-    """Tell each module of a transformer or encoder-decoder what the
-    placement split (``module.tp``): a self-attention's cache is split as a
-    cache of any length that divides, a cross-attention's as the encoder's
-    frames allow."""
+    """Tell each module what the placement split (``module.tp``): a
+    self-attention's cache is split as a cache of any length that divides, a
+    cross-attention's as the encoder's frames allow. A recurrent block's
+    state splits as :func:`cache_spec` places it (a Mamba2 state over its
+    heads, an xLSTM state over its first P axis)."""
     from ..models.attention import Attention
+    from ..models.hybrid import MambaBlock, _dims as mamba_dims
     from ..models.layers import SwiGLU
     from ..models.moe import MoE
+    from ..models.xlstm import MLSTMBlock, SLSTMBlock
 
     model = sh.MODEL_AXIS
+    m = _mesh_size(mesh, MODEL_AXIS)
     for prefix, mod in params.named_modules():
         def spec(field):
             return specs[f"{prefix}.{field}" if prefix else field]
@@ -304,6 +329,24 @@ def _tensor_parallel(params: nn.Module, specs: dict, cfg: ArchConfig, mesh) -> N
             mod.tp = sh.TensorParallel(ff=spec("w_gate")[1] == model)
         elif isinstance(mod, MoE):
             mod.tp = sh.TensorParallel(experts=spec("w_gate")[0] == model)
+        elif isinstance(mod, MambaBlock):
+            split = _together(prefix, {
+                "heads": mamba_dims(cfg)[1] % m == 0, "conv_w": spec("conv_w")[1] == model,
+                "conv_b": spec("conv_b")[0] == model, "ynorm": spec("ynorm")[0] == model,
+                "w_out": spec("w_out")[0] == model})
+            mod.tp = sh.TensorParallel(heads=split)
+        elif isinstance(mod, MLSTMBlock):
+            split = _together(prefix, {
+                "w_up": spec("w_up")[1] == model, "wq": spec("wq")[1] == model,
+                "wk": spec("wk")[1] == model, "wv": spec("wv")[1] == model,
+                "w_i": spec("w_i")[0] == model, "w_f": spec("w_f")[0] == model,
+                "hnorm": spec("hnorm")[0] == model, "w_down": spec("w_down")[0] == model})
+            mod.tp = sh.TensorParallel(inner=split)
+        elif isinstance(mod, SLSTMBlock):
+            split = _together(prefix, {
+                "state": (cfg.d_model // cfg.n_heads) % m == 0, "hnorm": spec("hnorm")[0] == model,
+                "w_out": spec("w_out")[0] == model})
+            mod.tp = sh.TensorParallel(inner=split)
     unembed = getattr(params, "unembed", None)
     vocab = specs["embed"][0] == model
     params.tp = sh.TensorParallel(
@@ -337,15 +380,6 @@ def kv_cache_dim(cfg: ArchConfig, mesh, length: Optional[int] = None) -> Optiona
     return dims[0] if dims else None
 
 
-def has_local_program(params: nn.Module) -> bool:
-    """Whether the model's family runs its tensor-parallel local program on
-    placed blocks (transformer, encoder-decoder)."""
-    from ..models.encdec import EncDec
-    from ..models.transformer import Transformer
-
-    return isinstance(params, (Transformer, EncDec))
-
-
 def _module_field(params: nn.Module, name: str) -> tuple[nn.Module, str]:
     mod_name, _, field = name.rpartition(".")
     return (params.get_submodule(mod_name) if mod_name else params), field
@@ -360,8 +394,8 @@ def _replace(params: nn.Module, name: str, t: torch.Tensor, requires_grad: bool)
 def place_params(params: nn.Module, cfg: ArchConfig, mesh, *, replicate: bool = False,
                  fsdp: bool = False) -> dict:
     """Replace every parameter of ``params`` with this rank's block under
-    :func:`param_specs`, in place, and mark the modules of a family with a
-    local program; returns the specs. With ``fsdp`` each module lists the
+    :func:`param_specs`, in place, and mark its modules for their local
+    program (unless ``replicate``); returns the specs. With ``fsdp`` each module lists the
     parameters split over the data axes in ``module.fsdp`` (field -> (dim,
     axes)), which its program gathers where it reads them
     (``sharding.gathered``). Call inside ``use_mesh(mesh, ...)``."""
@@ -374,10 +408,10 @@ def place_params(params: nn.Module, cfg: ArchConfig, mesh, *, replicate: bool = 
         if block.shape != p.shape:
             _replace(params, name, block.contiguous().clone(), p.requires_grad)
         split = [(d, e) for d, e in enumerate(specs[name]) if e is not None and e == data_axes]
-        if split and has_local_program(params):
+        if split:
             mod, field = _module_field(params, name)
             vars(mod).setdefault("fsdp", {})[field] = split[0]
-    if has_local_program(params) and not replicate:
+    if not replicate:
         _tensor_parallel(params, specs, cfg, mesh)
     return specs
 
@@ -388,8 +422,8 @@ def place_cache(cache: dict, cfg: ArchConfig, mesh) -> tuple[dict, dict]:
     contiguous tensor; the specs, K/V's as :func:`placed_kv_spec` places
     them). Call inside ``use_mesh``."""
     specs = cache_specs(cache, cfg, mesh)
-    for name, length in (("k", None), ("v", None), ("cross_k", cfg.encoder_frames),
-                         ("cross_v", cfg.encoder_frames)):
+    for name, length in (("k", None), ("v", None), ("attn_k", None), ("attn_v", None),
+                         ("cross_k", cfg.encoder_frames), ("cross_v", cfg.encoder_frames)):
         if name in specs:
             specs[name] = placed_kv_spec(specs[name], tuple(cache[name].shape), mesh)
             dims = [i - 1 for i, e in enumerate(specs[name]) if e == MODEL_AXIS]
@@ -399,55 +433,35 @@ def place_cache(cache: dict, cfg: ArchConfig, mesh) -> tuple[dict, dict]:
     return {k: sh.block(t, specs[k]).contiguous().clone() for k, t in cache.items()}, specs
 
 
-def _model_only(spec: tuple) -> tuple:
-    return tuple(e if e == MODEL_AXIS else None for e in spec)
-
-
 @torch.no_grad()
-def gather_params(params: nn.Module, specs: dict, *, model: bool = True) -> dict:
-    """Undo :func:`place_params`' split of ``params`` in place by all-gathers
-    (counted): over the data axes of an FSDP placement, and over the model
-    axis unless ``model`` is false. A family with no local program runs so,
-    and an FSDP model's prefill and decode (its data axes alone). Returns the
-    specs of the gathered parameters' blocks."""
-    gathered = {}
+def gather_params(params: nn.Module, specs: dict) -> None:
+    """Undo the data-axis split of an FSDP placement in place by all-gathers
+    (counted), for a prefill or decode step that reads its parameters whole;
+    the blocks split over the model axis stay this rank's."""
     for name, p in list(params.named_parameters()):
-        spec = specs[name] if model else tuple(None if e == MODEL_AXIS else e
-                                               for e in specs[name])
-        t = sh.gather_block(p.data, spec)
+        t = sh.gather_block(p.data, tuple(None if e == MODEL_AXIS else e for e in specs[name]))
         if t.shape != p.shape:
             _replace(params, name, t, p.requires_grad)
-            gathered[name] = specs[name]
-    return gathered
-
-
-@torch.no_grad()
-def reshard_params(params: nn.Module, specs: dict) -> None:
-    """Replace each parameter named in ``specs`` (a whole tensor, as
-    :func:`gather_params` left it) with this rank's block again."""
-    for name, p in list(params.named_parameters()):
-        if name in specs:
-            _replace(params, name, sh.block(p.data, specs[name]).contiguous().clone(),
-                     p.requires_grad)
-
-
-def gather_tensors(tensors: dict, specs: dict) -> dict:
-    """Each block gathered over the model axis (counted); data-axis blocks
-    stay this rank's."""
-    return {name: sh.gather_block(t, _model_only(specs[name])) for name, t in tensors.items()}
 
 
 def partial_grad_names(params: nn.Module, seq_len: Optional[int] = None) -> list[str]:
     """The replicated parameters that a split region reads, whose gradients
     are partial sums on each rank and need an all-reduce over the model axis:
     an attention's norms (and ``wk``/``wv`` where its kv heads are not split)
-    when its heads are split. In a sequence-parallel stream
+    when its heads are split; a split Mamba2 block's ``w_in`` (its product
+    enters the split region) and ``A_log``, ``D``, ``dt_bias`` (each rank
+    reads its heads' entries). (An mLSTM block enters its split region after
+    its norm, and an sLSTM block after its whole scan: their replicated
+    parameters see the whole gradient.) In a sequence-parallel stream
     (``sharding.seq_parallel``: the decoder's ``seq_len`` positions, the
     encoder's frames) also the norms that read the rank's block of the
-    stream. (An MoE's router reads the whole routing weights: its experts'
-    part of them is all-reduced where it enters the split region.)"""
+    stream; the recurrent families keep their whole sequence. (An MoE's
+    router reads the whole routing weights: its experts' part of them is
+    all-reduced where it enters the split region.)"""
     from ..models.attention import Attention
     from ..models.encdec import EncDec
+    from ..models.hybrid import MambaBlock
+    from ..models.transformer import Transformer
 
     out = []
     for prefix, mod in params.named_modules():
@@ -455,7 +469,9 @@ def partial_grad_names(params: nn.Module, seq_len: Optional[int] = None) -> list
         if isinstance(mod, Attention) and tp is not None and tp.heads:
             fields = ["q_norm", "k_norm"] + ([] if tp.kv else ["wk", "wv"])
             out += [f"{prefix}.{f}" for f in fields if getattr(mod, f) is not None]
-    if seq_len is None or not has_local_program(params):
+        elif isinstance(mod, MambaBlock) and tp is not None and tp.heads:
+            out += [f"{prefix}.{f}" for f in ("w_in", "A_log", "D", "dt_bias")]
+    if seq_len is None or not isinstance(params, (Transformer, EncDec)):
         return out
     encoder = isinstance(params, EncDec) and sh.seq_parallel(params.cfg.encoder_frames)
     for name, p in params.named_parameters():

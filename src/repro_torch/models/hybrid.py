@@ -23,6 +23,25 @@ In training (:func:`loss_fn`) ``remat`` recomputes each Mamba2 block in the
 backward and keeps the shared block's activations, as ``repro`` wraps only
 the Mamba scan's body in ``jax.checkpoint``; the shared block's gradient sums
 over its applications.
+
+On a mesh a model placed by ``launch.shardings.place_params`` runs its local
+program on the blocks that ``repro``'s specs place: the vocab-split
+embedding and logits, the shared block's attention and SwiGLU as the
+transformer's, and in each Mamba2 block (``tp.heads``; its heads, conv
+channels and ``w_out`` rows split together) the rank's heads. ``w_in`` is
+whole, so every rank computes the whole packed projection [x, z, B, C, dt];
+the rank runs the causal conv on its block of the conv channels (its
+``conv_w``/``conv_b`` and ``conv`` state), whose output is all-gathered
+(one all-gather of B x S x conv_dim a block), because a rank's conv block
+is not its heads' channels (at zamba2-1.2b on 16 ranks a block is 264 of
+the 4,224 channels; a rank's 4 heads read 256 channels of x and all of B
+and C). An all-to-all of the x channels and a broadcast of B and C would
+move less, about 384 of the 4,224 channels a rank; the port's collectives
+are all-reduce, all-gather and reduce-scatter, and of these the all-gather
+moves least. The SSD then runs on the rank's heads (its slices of ``dt``,
+``A_log``, ``D``, ``dt_bias``, its block of ``h``), ``ynorm`` normalises
+over the whole d_inner with one all-reduce of the rows' mean squares, and
+``w_out``'s partial product is all-reduced.
 """
 from __future__ import annotations
 
@@ -30,11 +49,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from typing import Optional
+
 from ..configs.base import ArchConfig
+from ..distributed import sharding as sh
 from ..distributed.sharding import shard
-from .attention import Attention, decode_attention_step, prefill_attention
-from .layers import (SwiGLU, cross_entropy, normal_init, parameter, remat as _remat, rms_norm,
-                     unembed)
+from .attention import Attention, decode_attention_step, prefill_attention, store_prefill_kv
+from .layers import (SwiGLU, cross_entropy, embed, normal_init, parameter, remat as _remat,
+                     rms_norm, rms_norm_split, unembed, unembed_input)
 from .ssm import softplus, ssd_chunked, ssd_step
 
 
@@ -49,6 +71,8 @@ def _dims(cfg: ArchConfig):
 
 class MambaBlock(nn.Module):
     """One Mamba2 block's weights (``repro``'s ``init_mamba_block``)."""
+
+    tp: Optional[sh.TensorParallel] = None  # set by launch.shardings.place_params
 
     def __init__(self, cfg: ArchConfig, device: torch.device) -> None:
         super().__init__()
@@ -108,6 +132,8 @@ class Zamba2(nn.Module):
     ``final_norm``, ``unembed`` and, with ``hybrid_attn_every``, the one
     ``shared_attn`` block."""
 
+    tp: Optional[sh.TensorParallel] = None  # set by launch.shardings.place_params
+
     def __init__(self, cfg: ArchConfig, device: torch.device) -> None:
         super().__init__()
         dt = cfg.torch_dtype
@@ -138,12 +164,6 @@ class Zamba2(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _mamba_proj(cfg: ArchConfig, p: MambaBlock, x):
-    d_inner, H, P, N = _dims(cfg)
-    u = rms_norm(x, p.ln, cfg.norm_eps) @ p.w_in
-    return torch.split(u, [d_inner, d_inner, N, N, H], dim=-1)  # xs, z, Bm, Cm, dt
-
-
 def _causal_conv(seq: torch.Tensor, w: torch.Tensor, b: torch.Tensor, ctx=None):
     """Depthwise causal conv. seq: (B, S, C); w: (K, C). ctx: (B, K-1, C)
     previous inputs (decode) or None (prefill pads with zeros). The K terms
@@ -158,29 +178,62 @@ def _causal_conv(seq: torch.Tensor, w: torch.Tensor, b: torch.Tensor, ctx=None):
     return F.silu(out), full[:, -(K - 1):, :]
 
 
+def _split(p: MambaBlock) -> bool:
+    """Whether the block's heads, conv channels and rows are split."""
+    return p.tp is not None and p.tp.heads
+
+
 def _mamba_mix(cfg: ArchConfig, p: MambaBlock, x, ctx):
-    """The projections and the conv: (xs, z, Bm, Cm, dt f32, A, new_ctx)."""
+    """The projections and the conv: (xs, z, Bm, Cm, dt f32, A, D, new_ctx);
+    on a split block xs, dt, A and D of the rank's heads, z its block of
+    d_inner, the conv and ``ctx`` on its block of the channels (the
+    module's docstring says why its output is all-gathered)."""
     d_inner, H, P, N = _dims(cfg)
+    split = _split(p)
     xs, z, Bm, Cm, dt = _mamba_proj(cfg, p, x)
-    conv_out, new_ctx = _causal_conv(torch.cat([xs, Bm, Cm], dim=-1), p.conv_w, p.conv_b, ctx)
+    conv_in = torch.cat([xs, Bm, Cm], dim=-1)
+    dt_bias, A_log, D = p.dt_bias, p.A_log, p.D
+    if split:
+        conv_in = sh.local_block(conv_in, 2, sh.MODEL_AXIS)
+        z, dt = sh.local_block(z, 2, sh.MODEL_AXIS), sh.local_block(dt, 2, sh.MODEL_AXIS)
+        dt_bias, A_log, D = (sh.local_block(t, 0, sh.MODEL_AXIS) for t in (dt_bias, A_log, D))
+    conv_out, new_ctx = _causal_conv(conv_in, p.conv_w, p.conv_b, ctx)
+    if split:  # each rank's heads read their own part of it: the gradient is summed
+        conv_out = sh.all_gather(conv_out, 2, sum_grad=True)
     xs, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
-    dt = softplus(dt.float() + p.dt_bias)
-    A = -torch.exp(p.A_log)
-    return xs, z, Bm, Cm, dt, A, new_ctx
+    if split:
+        xs = sh.local_block(xs, 2, sh.MODEL_AXIS)
+    dt = softplus(dt.float() + dt_bias)
+    A = -torch.exp(A_log)
+    return xs, z, Bm, Cm, dt, A, D, new_ctx
 
 
 def _mamba_out(cfg: ArchConfig, p: MambaBlock, x, y, z):
-    y = rms_norm(y * F.silu(z), p.ynorm, cfg.norm_eps)
-    return x + y @ p.w_out
+    split = _split(p)
+    y = rms_norm_split(y * F.silu(z), p.ynorm, cfg.norm_eps, split)
+    return x + sh.leave(y @ p.w_out, split)
+
+
+def _mamba_in(cfg: ArchConfig, p: MambaBlock, x):
+    """The normalised input; where the block is split it enters the split
+    region (Megatron's f)."""
+    return sh.enter(rms_norm(x, p.ln, cfg.norm_eps), _split(p))
+
+
+def _mamba_proj(cfg: ArchConfig, p: MambaBlock, x):
+    d_inner, H, P, N = _dims(cfg)
+    u = _mamba_in(cfg, p, x) @ p.w_in
+    return torch.split(u, [d_inner, d_inner, N, N, H], dim=-1)  # xs, z, Bm, Cm, dt
 
 
 def mamba_block(cfg: ArchConfig, p: MambaBlock, x):
-    """x: (B,S,d), from a zero state. Returns (y, (h (B,H,N,P), conv ctx))."""
+    """x: (B,S,d), from a zero state. Returns (y, (h (B,H,N,P), conv ctx)),
+    the state of the rank's heads and channels on a split block."""
     d_inner, H, P, N = _dims(cfg)
     B, S, _ = x.shape
-    xs, z, Bm, Cm, dt, A, new_ctx = _mamba_mix(cfg, p, x, None)
-    y, h = ssd_chunked(xs.reshape(B, S, H, P), dt, A, Bm, Cm, p.D, chunk=cfg.ssm.chunk)
-    return _mamba_out(cfg, p, x, y.reshape(B, S, d_inner), z), (h, new_ctx)
+    xs, z, Bm, Cm, dt, A, D, new_ctx = _mamba_mix(cfg, p, x, None)
+    y, h = ssd_chunked(xs.reshape(B, S, -1, P), dt, A, Bm, Cm, D, chunk=cfg.ssm.chunk)
+    return _mamba_out(cfg, p, x, y.reshape(B, S, -1), z), (h, new_ctx)
 
 
 def mamba_block_step(cfg: ArchConfig, p: MambaBlock, x, state):
@@ -188,9 +241,9 @@ def mamba_block_step(cfg: ArchConfig, p: MambaBlock, x, state):
     d_inner, H, P, N = _dims(cfg)
     B = x.shape[0]
     h, ctx = state
-    xs, z, Bm, Cm, dt, A, new_ctx = _mamba_mix(cfg, p, x, ctx)
-    y, h = ssd_step(xs[:, 0].reshape(B, H, P), dt[:, 0], A, Bm[:, 0], Cm[:, 0], p.D, h)
-    return _mamba_out(cfg, p, x, y.reshape(B, 1, d_inner), z), (h, new_ctx)
+    xs, z, Bm, Cm, dt, A, D, new_ctx = _mamba_mix(cfg, p, x, ctx)
+    y, h = ssd_step(xs[:, 0].reshape(B, -1, P), dt[:, 0], A, Bm[:, 0], Cm[:, 0], D, h)
+    return _mamba_out(cfg, p, x, y.reshape(B, 1, -1), z), (h, new_ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -234,26 +287,35 @@ def _shared_attn_prefill(cfg: ArchConfig, p: SharedBlock, x, positions, use_kern
 def _embed(params: Zamba2, tokens: torch.Tensor):
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
-    return shard(params.embed[tokens.long()], "batch", "seq", None), positions
+    return shard(embed(params.embed, tokens, params.tp), "batch", "seq", None), positions
+
+
+def _logits(cfg: ArchConfig, params: Zamba2, x):
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    return unembed(unembed_input(x, params.tp), params.unembed)
 
 
 def forward(cfg: ArchConfig, params: Zamba2, tokens: torch.Tensor, *, remat: bool = True,
             use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Full forward pass over ``tokens`` (B, S). Returns (logits (B, S, V),
     aux loss 0 as a 0-dim f32 tensor). ``remat`` recomputes each Mamba2
-    block in the backward."""
-    x, positions = _embed(params, tokens)
-    for _, layers, attn in _groups(cfg):
-        for li in layers:
+    block in the backward. FSDP parameters are gathered for the block that
+    reads them, and again in its recompute (:func:`sh.gathered`)."""
+    with sh.gathered(params, recurse=False):
+        x, positions = _embed(params, tokens)
+        for _, layers, attn in _groups(cfg):
+            for li in layers:
 
-            def body(x, p=params.mamba[li]):
-                return mamba_block(cfg, p, x)[0]
+                def body(x, p=params.mamba[li]):
+                    with sh.gathered(p):
+                        return mamba_block(cfg, p, x)[0]
 
-            x = _remat(body, x) if remat else body(x)
-        if attn:
-            x, _ = _shared_attn_prefill(cfg, params.shared_attn, x, positions, use_kernel)
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    logits = unembed(x, params.unembed)
+                x = _remat(body, x) if remat else body(x)
+            if attn:
+                with sh.gathered(params.shared_attn):
+                    x, _ = _shared_attn_prefill(cfg, params.shared_attn, x, positions,
+                                                use_kernel)
+        logits = _logits(cfg, params, x)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
@@ -262,7 +324,7 @@ def loss_fn(cfg: ArchConfig, params: Zamba2, batch, *, remat: bool = True,
     """batch: {"tokens", "labels"} (B, S). Returns (ce + aux, {"ce", "nll",
     "aux"}), 0-dim f32 tensors."""
     logits, aux = forward(cfg, params, batch["tokens"], remat=remat, use_kernel=use_kernel)
-    ce, nll = cross_entropy(logits, batch["labels"])
+    ce, nll = cross_entropy(logits, batch["labels"], tp=params.tp)
     return ce + aux, {"ce": ce, "nll": nll, "aux": aux}
 
 
@@ -296,6 +358,9 @@ def prefill(cfg: ArchConfig, params: Zamba2, tokens: torch.Tensor, cache, *,
     B, S = tokens.shape
     window = cfg.sliding_window
     S_c = cache["attn_k"].shape[3] if "attn_k" in cache else 0
+    tp = params.shared_attn.attn.tp if params.shared_attn is not None else None
+    if tp is not None and tp.cache_dim == 2:  # this rank's slice of the rows
+        S_c *= sh.mesh_size(sh.current_mesh(), sh.MODEL_AXIS)
     if "attn_k" in cache and window is None and S > S_c:
         raise ValueError(f"prompt of {S} tokens is longer than the cache's {S_c} rows")
     x, positions = _embed(params, tokens)
@@ -311,10 +376,9 @@ def prefill(cfg: ArchConfig, params: Zamba2, tokens: torch.Tensor, cache, *,
                 shift = (S - S_c) % S_c
                 k = torch.roll(k[:, :, -S_c:], shifts=shift, dims=2)
                 v = torch.roll(v[:, :, -S_c:], shifts=shift, dims=2)
-            cache["attn_k"][gi, :, :, : k.shape[2]] = k
-            cache["attn_v"][gi, :, :, : v.shape[2]] = v
-    x = rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
-    logits = unembed(x, params.unembed)
+            store_prefill_kv(cache["attn_k"][gi], k, tp)
+            store_prefill_kv(cache["attn_v"][gi], v, tp)
+    logits = _logits(cfg, params, x[:, -1:])
     cache["lengths"].fill_(S)
     return logits, cache
 
@@ -324,7 +388,7 @@ def decode_step(cfg: ArchConfig, params: Zamba2, cache, tokens: torch.Tensor, *,
     """One greedy decode step. tokens: (B, 1) int32, the current token.
     Returns (logits (B, 1, V), cache updated in place: each new state is
     computed, then copied in)."""
-    x = shard(params.embed[tokens.long()], "batch", "seq", None)
+    x = shard(embed(params.embed, tokens, params.tp), "batch", "seq", None)
     lengths = cache["lengths"]
     for gi, layers, attn in _groups(cfg):
         for li in layers:
@@ -341,7 +405,6 @@ def decode_step(cfg: ArchConfig, params: Zamba2, cache, tokens: torch.Tensor, *,
             )
             x = x + h_att
             x = x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    logits = unembed(x, params.unembed)
+    logits = _logits(cfg, params, x)
     lengths.add_(1)
     return logits, cache

@@ -37,6 +37,35 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
     return (x * weight.float()).to(dt)
 
 
+def rms_norm_split(x: torch.Tensor, weight: torch.Tensor, eps: float, split: bool) -> torch.Tensor:
+    """:func:`rms_norm` of a vector of which ``x`` holds this rank's block
+    of the last dim and ``weight`` its block of the weight, where ``split``
+    (over the model axis): the mean of squares is the ranks' means averaged,
+    one all-reduce of a scalar a row, whose gradient is summed over the
+    ranks (each rank's block reads it). Not ``split``, or at model-axis
+    size 1: :func:`rms_norm`."""
+    m = sh.mesh_size(sh.current_mesh(), sh.MODEL_AXIS) if split else 1
+    if m == 1:
+        return rms_norm(x, weight, eps)
+    dt = x.dtype
+    x = x.float()
+    ms = sh.copy_to(sh.all_reduce(torch.mean(x * x, dim=-1, keepdim=True))) / m
+    return (x * torch.rsqrt(ms + eps) * weight.float()).to(dt)
+
+
+def rms_norm_block(x: torch.Tensor, weight: torch.Tensor, eps: float, split: bool) -> torch.Tensor:
+    """:func:`rms_norm` of ``x``, a whole vector that every rank holds the
+    same, of which this rank keeps its block of the last dim where
+    ``split``, scaled by ``weight`` (its block): the block enters a split
+    region there (Megatron's f), so its gradient is summed over the ranks."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    if split:
+        x = sh.local_block(sh.copy_to(x), x.dim() - 1, sh.MODEL_AXIS)
+    return (x * weight.float()).to(dt)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding. x: (..., seq, heads, head_dim); positions: (..., seq)."""
     hd = x.shape[-1]

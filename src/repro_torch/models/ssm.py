@@ -14,6 +14,12 @@ port computes in plain PyTorch ops.
 ``softplus`` is ``logaddexp(x, 0)``, which is what ``jax.nn.softplus``
 computes; ``torch.nn.functional.softplus`` switches to the identity above 20.
 
+Under a count that counts a scan once (``roofline.count.count(...,
+scan_once=True)``, the dry-run) each loop over chunks or tokens runs one
+step, counted as many times as the loop has steps, its backward too
+(``repro``'s counter counts a while loop's body times its trip count); the
+values are then not the scan's.
+
 All cells expose:
   *_chunked     — full-sequence (prefill) form
   *_step        — single-token decode form
@@ -21,9 +27,11 @@ and ``slstm_scan``, the sLSTM's sequential scan (prefill and decode alike).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+
+from ..roofline.count import scans_once, step_counted
 
 _NEG = -1e30
 
@@ -78,9 +86,8 @@ def ssd_chunked(
     mask = _tril(L, x.device)[None, :, :, None]
 
     h = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device) if h0 is None else h0
-    ys = []
-    for c in range(nC):
-        csum_i, x_i, B_i, C_i = csum[:, c], xdt_c[:, c], B_c[:, c], C_c[:, c]
+
+    def step(csum_i, x_i, B_i, C_i, h):
         # intra-chunk scores: S_ij = (C_i · B_j) * exp(csum_i - csum_j), j <= i;
         # masked before exp, as the reference masks it
         gap = csum_i[:, :, None, :] - csum_i[:, None, :, :]   # (B, L, L, H)
@@ -94,8 +101,18 @@ def ssd_chunked(
         tail = torch.exp(csum_i[:, -1:, :] - csum_i)    # (B, L, H)
         h_new = h * torch.exp(csum_i[:, -1])[..., None, None]
         h = h_new + torch.einsum("bjn,bjh,bjhp->bhnp", B_i, tail, x_i)
-        ys.append(y_intra + y_inter)
-    y = torch.stack(ys, dim=1).reshape(Bsz, S, H, P)
+        return y_intra + y_inter, h
+
+    # the chunks as views (one stack in the backward, where per-chunk
+    # indexing would write a zero tensor of the whole input a chunk)
+    chunks = [t.unbind(1) for t in (csum, xdt_c, B_c, C_c)]
+    once = nC > 1 and scans_once()
+    ys = []
+    for c in range(1 if once else nC):
+        args = tuple(t[c] for t in chunks) + (h,)
+        y_c, h = step_counted(step, nC, *args) if once else step(*args)
+        ys.append(y_c)
+    y = torch.stack(ys * nC if once else ys, dim=1).reshape(Bsz, S, H, P)
     y = y + x.float() * D[None, None, :, None]
     return y[:, :S_orig].to(x.dtype), h
 
@@ -166,10 +183,9 @@ def mlstm_chunked(
     mask = _tril(L, q.device)[None, :, :, None]
 
     C_prev, n_prev, m_prev = mlstm_init_state(Bsz, H, P, q.device) if state is None else state
-    hs = []
-    for c in range(nC):
-        q_i, k_i, v_i, ig_i = q_c[:, c], k_c[:, c], v_c[:, c], i_c[:, c]
-        b = torch.cumsum(logf_c[:, c], dim=1)           # (B, L, H) inclusive
+
+    def step(q_i, k_i, v_i, ig_i, logf_i, C_prev, n_prev, m_prev):
+        b = torch.cumsum(logf_i, dim=1)                 # (B, L, H) inclusive
         # source log-gain within chunk: a_j = i_j - b_j
         a = ig_i - b
         # per-position stabilizer: m_i = max(b_i + cummax_j<=i(a_j), b_i + m_prev)
@@ -189,7 +205,7 @@ def mlstm_chunked(
         qn = torch.einsum("bihp,bhp->bih", q_i, n_prev) * scale
         num = num + qC * inter_f[..., None]
         den = den + qn * inter_f
-        hs.append(num / torch.maximum(torch.abs(den), torch.exp(-m_pos))[..., None])
+        h_i = num / torch.maximum(torch.abs(den), torch.exp(-m_pos))[..., None]
         # ---- state update to chunk end ----
         b_L = b[:, -1, :]                               # (B, H)
         m_new = torch.maximum(b_L + m_prev, b_L + acum[:, -1, :])
@@ -198,8 +214,16 @@ def mlstm_chunked(
         C_prev = C_prev * decay[..., None, None] + torch.einsum(
             "bjhp,bjhr->bhpr", src[..., None] * k_i, v_i)
         n_prev = n_prev * decay[..., None] + torch.einsum("bjh,bjhp->bhp", src, k_i)
-        m_prev = m_new
-    h = torch.stack(hs, dim=1).reshape(Bsz, S, H, P)
+        return h_i, C_prev, n_prev, m_new
+
+    chunks = [t.unbind(1) for t in (q_c, k_c, v_c, i_c, logf_c)]  # as in ssd_chunked
+    once = nC > 1 and scans_once()
+    hs = []
+    for c in range(1 if once else nC):
+        args = tuple(t[c] for t in chunks) + (C_prev, n_prev, m_prev)
+        h_i, C_prev, n_prev, m_prev = step_counted(step, nC, *args) if once else step(*args)
+        hs.append(h_i)
+    h = torch.stack(hs * nC if once else hs, dim=1).reshape(Bsz, S, H, P)
     return h[:, :S_orig].to(q.dtype), (C_prev, n_prev, m_prev)
 
 
@@ -210,10 +234,17 @@ def mlstm_step(
     i_gate: torch.Tensor,  # (B, H)
     f_gate: torch.Tensor,  # (B, H)
     state: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    *,
+    reduce: Optional[Callable[[list], list]] = None,
 ):
-    """One mLSTM recurrence step (decode). Returns (h (B,H,P), (C, n, m))."""
+    """One mLSTM recurrence step (decode). Returns (h (B,H,P), (C, n, m)).
+
+    With ``reduce``, ``q``, ``k`` and the state's ``C`` (B, H, P_k, P) and
+    ``n`` are one block of the key axis P_k (a tensor-parallel rank's):
+    ``reduce([num, den])`` sums ``q·C`` and ``q·n`` over the blocks before
+    the division."""
     C, n, m = state
-    P = q.shape[-1]
+    P = v.shape[-1]  # the head dim (q and k may be a block of it)
     scale = P**-0.5
     logf = -softplus(-f_gate.float())
     ig = i_gate.float()
@@ -227,6 +258,8 @@ def mlstm_step(
     qf = q.float() * scale
     num = torch.einsum("bhp,bhpr->bhr", qf, C)
     den = torch.einsum("bhp,bhp->bh", qf, n)
+    if reduce is not None:
+        num, den = reduce([num, den])
     h = num / torch.maximum(torch.abs(den), torch.exp(-m_new))[..., None]
     return h.to(q.dtype), (C, n, m_new)
 
@@ -251,26 +284,38 @@ def slstm_scan(
     state: Optional[tuple] = None,
 ):
     """Returns (h (B,S,H,P) in x_gates' dtype, final (c,n,h,m) f32). Gate
-    order: z, i, f, o."""
+    order: z, i, f, o. ``R`` may hold a block of the output P axis (r) of
+    every head, and the state's ``c``, ``n``, ``m`` that block: the step
+    then reads the whole ``h`` it is given and returns the block of it."""
     Bsz, S, _, H, P = x_gates.shape
-    c, n, h, m = slstm_init_state(Bsz, H, P, x_gates.device) if state is None else state
+    c, n, h, m = (slstm_init_state(Bsz, H, P, x_gates.device) if state is None
+                  else state)
     Rf = R.float()  # the reference casts R at every step; the values are the same
+    steps = x_gates.unbind(1)  # as in ssd_chunked
+    once = S > 1 and scans_once()
     hs = []
-    for t in range(S):
-        xg = x_gates[:, t].float()
-        # gate pre-activations: input part + recurrent part
-        rec = torch.einsum("bhp,ghpr->gbhr", h, Rf)
-        zt = torch.tanh(xg[:, 0] + rec[0])
-        it = xg[:, 1] + rec[1]                          # exp gate (log-space)
-        ft = xg[:, 2] + rec[2]                          # sigmoid gate
-        ot = torch.sigmoid(xg[:, 3] + rec[3])
-        logf = -softplus(-ft)
-        m_new = torch.maximum(logf + m, it)
-        i_s = torch.exp(it - m_new)
-        f_s = torch.exp(logf + m - m_new)
-        c = f_s * c + i_s * zt
-        n = f_s * n + i_s
-        h = ot * c / torch.clamp(torch.abs(n), min=1e-6)
-        m = m_new
+    for t in range(1 if once else S):
+        args = (steps[t], Rf, c, n, h, m)
+        c, n, h, m = step_counted(_slstm_step, S, *args) if once else _slstm_step(*args)
         hs.append(h)
-    return torch.stack(hs, dim=1).to(x_gates.dtype), (c, n, h, m)
+    return torch.stack(hs * S if once else hs, dim=1).to(x_gates.dtype), (c, n, h, m)
+
+
+def _slstm_step(x_gates_t, Rf, c, n, h, m):
+    """One sLSTM step: the new (c, n, h, m)."""
+    xg = x_gates_t.float()
+    # gate pre-activations: input part + recurrent part
+    rec = torch.einsum("bhp,ghpr->gbhr", h, Rf)
+    zt = torch.tanh(xg[:, 0] + rec[0])
+    it = xg[:, 1] + rec[1]                          # exp gate (log-space)
+    ft = xg[:, 2] + rec[2]                          # sigmoid gate
+    ot = torch.sigmoid(xg[:, 3] + rec[3])
+    logf = -softplus(-ft)
+    m_new = torch.maximum(logf + m, it)
+    i_s = torch.exp(it - m_new)
+    f_s = torch.exp(logf + m - m_new)
+    c = f_s * c + i_s * zt
+    n = f_s * n + i_s
+    h = ot * c / torch.clamp(torch.abs(n), min=1e-6)
+    return c, n, h, m_new
+

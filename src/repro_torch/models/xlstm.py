@@ -29,8 +29,38 @@ Decode computes each new state and then copies it into the cache.
 In training (:func:`loss_fn`) ``remat`` recomputes each mLSTM block in the
 backward and keeps the sLSTM's activations, as ``repro`` wraps only the
 mLSTM scan's body in ``jax.checkpoint``.
+
+On a mesh a model placed by ``launch.shardings.place_params`` runs its local
+program on the blocks that ``repro``'s specs place. xlstm-1.3b has 4 heads,
+which no model axis of 16 splits: the specs split the P axes instead.
+
+- An mLSTM block (``tp.inner``) holds a block of ``w_up``'s columns, which
+  pack [a | z] (at 2 ranks one holds all of ``a``), the input P rows of
+  ``wq``/``wk``/``wv`` (so q, k and v are partial sums), the rows of ``w_i``,
+  ``w_f``, ``hnorm`` and ``w_down``, and the first P axis of its ``C`` and
+  ``n``. Every rank reads its P rows of ``a`` for q, k, v, its block of
+  ``a`` for the gates and its block of ``z``: three layouts of the packed
+  columns, so the projection is all-gathered (B x S x 2 d_inner a block; an
+  all-to-all of the parts a rank reads, at most 3 d_inner / m columns of
+  the gather's 2 d_inner (m - 1) / m, would move less: the port's
+  collectives are all-reduce, all-gather and reduce-scatter, and of these
+  the all-gather moves least). The partial q, k, v and gates are
+  summed in one all-reduce. The prefill runs the chunked cell on the whole
+  heads (every rank the same, no collective inside the cell) and keeps the
+  rank's block of ``C`` and ``n``; a decode step updates the rank's block
+  and sums ``q·C`` and ``q·n`` over the key axis in one all-reduce
+  (``mlstm_step``'s ``reduce``). ``hnorm`` normalises the whole ``h``, and
+  ``w_down``'s partial product is all-reduced.
+- An sLSTM block (``tp.inner``) holds the rows of ``w_out`` and ``hnorm`` and
+  the P axis of its states; ``w_gates`` and ``R`` are whole. The prefill runs
+  the whole scan on every rank (no per-token collective) and keeps the
+  state's P block; a decode step all-gathers ``h`` for the recurrence,
+  updates the rank's P block, and all-gathers the new ``h`` for the output,
+  whose rows split as ``w_out``'s.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -38,7 +68,8 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..distributed import sharding as sh
-from .layers import cross_entropy, normal_init, parameter, remat as _remat, rms_norm, unembed
+from .layers import (cross_entropy, embed, normal_init, parameter, remat as _remat, rms_norm,
+                     rms_norm_block, unembed, unembed_input)
 from .ssm import mlstm_chunked, mlstm_init_state, mlstm_step, slstm_init_state, slstm_scan
 
 EXPAND = 2
@@ -55,6 +86,8 @@ def _dims(cfg: ArchConfig):
 
 class MLSTMBlock(nn.Module):
     """One mLSTM block's weights (``repro``'s ``init_mlstm_block``)."""
+
+    tp: Optional[sh.TensorParallel] = None  # set by launch.shardings.place_params
 
     def __init__(self, cfg: ArchConfig, device: torch.device) -> None:
         super().__init__()
@@ -89,6 +122,8 @@ class MLSTMBlock(nn.Module):
 
 class SLSTMBlock(nn.Module):
     """One sLSTM block's weights (``repro``'s ``init_slstm_block``)."""
+
+    tp: Optional[sh.TensorParallel] = None  # set by launch.shardings.place_params
 
     def __init__(self, cfg: ArchConfig, device: torch.device) -> None:
         super().__init__()
@@ -131,6 +166,8 @@ class XLSTM(nn.Module):
     ``embed``, ``final_norm``, ``unembed`` and ``groups``, one entry a plan
     group (a ``ModuleList`` of mLSTM blocks, or an sLSTM block)."""
 
+    tp: Optional[sh.TensorParallel] = None  # set by launch.shardings.place_params
+
     def __init__(self, cfg: ArchConfig, device: torch.device) -> None:
         super().__init__()
         dt = cfg.torch_dtype
@@ -162,63 +199,114 @@ class XLSTM(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def _split(p) -> bool:
+    """Whether the block's inner rows and state are split."""
+    return p.tp is not None and p.tp.inner
+
+
 def _mlstm_qkv(cfg: ArchConfig, p: MLSTMBlock, x):
+    """q, k, v (B,S,H,P), the gates (B,S,H) and z: whole heads; z the rank's
+    block of d_inner where the block is split (the module's docstring)."""
     d_inner, H, P = _dims(cfg)
-    u = rms_norm(x, p.ln, cfg.norm_eps) @ p.w_up
+    split = _split(p)
+    u = sh.enter(rms_norm(x, p.ln, cfg.norm_eps), split) @ p.w_up
+    if split:  # each rank reads its own parts of it: the gradient is summed
+        u = sh.all_gather(u, 2, sum_grad=True)
     a, z = torch.chunk(u, 2, dim=-1)
     a = sh.shard(a, "batch", None, "ff")
     B, S = x.shape[:2]
     ah = a.reshape(B, S, H, P)
+    if split:
+        ah = sh.local_block(ah, 3, sh.MODEL_AXIS)  # the input P rows of wq, wk, wv
+        a, z = sh.local_block(a, 2, sh.MODEL_AXIS), sh.local_block(z, 2, sh.MODEL_AXIS)
     q = torch.einsum("bshp,hpr->bshr", ah, p.wq)
     k = torch.einsum("bshp,hpr->bshr", ah, p.wk)
     v = torch.einsum("bshp,hpr->bshr", ah, p.wv)
-    ig = a @ p.w_i + p.b_i.float()
-    fg = a @ p.w_f + p.b_f.float()
-    return q, k, v, ig, fg, z
+    ig, fg = a @ p.w_i, a @ p.w_f
+    if split:
+        q, k, v, ig, fg = sh.all_reduce_many([q, k, v, ig, fg])
+    return q, k, v, ig + p.b_i.float(), fg + p.b_f.float(), z
 
 
 def _mlstm_out(cfg: ArchConfig, p: MLSTMBlock, x, h, z):
+    split = _split(p)
     h = h.reshape(x.shape[0], x.shape[1], -1)
-    h = rms_norm(h, p.hnorm, cfg.norm_eps) * F.silu(z)
-    return x + h @ p.w_down
+    h = rms_norm_block(h, p.hnorm, cfg.norm_eps, split) * F.silu(z)
+    return x + sh.leave(h @ p.w_down, split)
+
+
+def _state_block(p, state: tuple) -> tuple:
+    """The rank's block of a whole state's P axis (dim 2; an mLSTM's ``m``,
+    one scalar a head, whole) where the block is split."""
+    if not _split(p):
+        return state
+    return tuple(t if t.dim() == 2 else sh.local_block(t, 2, sh.MODEL_AXIS) for t in state)
 
 
 def mlstm_block(cfg: ArchConfig, p: MLSTMBlock, x, *, chunk: int):
-    """x: (B,S,d), from a fresh state. Returns (y, (C, n, m))."""
+    """x: (B,S,d), from a fresh state. Returns (y, (C, n, m)), the rank's
+    block of ``C`` and ``n`` where the block is split."""
     q, k, v, ig, fg, z = _mlstm_qkv(cfg, p, x)
     h, state = mlstm_chunked(q, k, v, ig, fg, chunk=chunk)
-    return _mlstm_out(cfg, p, x, h, z), state
+    return _mlstm_out(cfg, p, x, h, z), _state_block(p, state)
 
 
 def mlstm_block_step(cfg: ArchConfig, p: MLSTMBlock, x, state):
-    """x: (B,1,d); single-token decode. Returns (y, new (C, n, m))."""
+    """x: (B,1,d); single-token decode on ``state`` (the rank's block where
+    the block is split). Returns (y, new (C, n, m))."""
     q, k, v, ig, fg, z = _mlstm_qkv(cfg, p, x)
-    h, state = mlstm_step(q[:, 0], k[:, 0], v[:, 0], ig[:, 0], fg[:, 0], state)
+    q, k, reduce = q[:, 0], k[:, 0], None
+    if _split(p):
+        q, k = sh.local_block(q, 2, sh.MODEL_AXIS), sh.local_block(k, 2, sh.MODEL_AXIS)
+        reduce = sh.all_reduce_many
+    h, state = mlstm_step(q, k, v[:, 0], ig[:, 0], fg[:, 0], state, reduce=reduce)
     return _mlstm_out(cfg, p, x, h, z), state
 
 
 def slstm_block(cfg: ArchConfig, p: SLSTMBlock, x, *, state=None):
-    """x: (B,S,d); ``state`` None is a fresh one. Returns (y, (c, n, h, m))."""
+    """x: (B,S,d); ``state`` None is a fresh one (the rank's P block of each
+    state where the block is split). Returns (y, (c, n, h, m))."""
     B, S, d = x.shape
     H = cfg.n_heads
-    xg = rms_norm(x, p.ln, cfg.norm_eps) @ p.w_gates + p.b_gates.float()
-    h, state = slstm_scan(xg.reshape(B, S, 4, H, d // H), p.R, state=state)
-    h = rms_norm(h.reshape(B, S, -1).to(x.dtype), p.hnorm, cfg.norm_eps)
-    return x + h @ p.w_out, state
+    split = _split(p)
+    xg = (rms_norm(x, p.ln, cfg.norm_eps) @ p.w_gates + p.b_gates.float()).reshape(B, S, 4, H,
+                                                                                 d // H)
+    if state is None or not split:
+        h, state = slstm_scan(xg, p.R, state=state)
+        state = _state_block(p, state)
+    else:  # the rank's P block of the step, from the whole h
+        c, n, h_prev, m = state
+        state = (c, n, sh.all_gather(h_prev, 2), m)
+        h, state = slstm_scan(sh.local_block(xg, 4, sh.MODEL_AXIS),
+                              sh.local_block(p.R, 3, sh.MODEL_AXIS), state=state)
+        h = sh.all_gather(h, 3)
+    h = rms_norm_block(h.reshape(B, S, -1).to(x.dtype), p.hnorm, cfg.norm_eps, split)
+    return x + sh.leave(h @ p.w_out, split), state
 
 
 def _chunk(cfg: ArchConfig) -> int:
     return cfg.ssm.chunk if cfg.ssm else 256
 
 
+def _embed(params: XLSTM, tokens: torch.Tensor) -> torch.Tensor:
+    return sh.shard(embed(params.embed, tokens, params.tp), "batch", "seq", None)
+
+
+def _logits(cfg: ArchConfig, params: XLSTM, x):
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    return unembed(unembed_input(x, params.tp), params.unembed)
+
+
 def _run(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor, cache=None, remat=False):
     """The stack over ``tokens`` from a fresh state; with ``cache``, each
     block's final state is copied into it; ``remat`` recomputes each mLSTM
-    block in the backward. Returns the last layer's output."""
-    x = sh.shard(params.embed[tokens.long()], "batch", "seq", None)
+    block in the backward. FSDP parameters are gathered for the block that
+    reads them (:func:`sh.gathered`). Returns the last layer's output."""
+    x = _embed(params, tokens)
     for gi, group in enumerate(params.groups):
         if isinstance(group, SLSTMBlock):
-            x, state = slstm_block(cfg, group, x)
+            with sh.gathered(group):
+                x, state = slstm_block(cfg, group, x)
             if cache is not None:
                 for name, t in zip(SLSTM_STATE, state):
                     cache[f"g{gi}.{name}"].copy_(t)
@@ -226,7 +314,8 @@ def _run(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor, cache=None, remat
         for j, block in enumerate(group):
 
             def body(x, p=block):
-                return mlstm_block(cfg, p, x, chunk=_chunk(cfg))
+                with sh.gathered(p):
+                    return mlstm_block(cfg, p, x, chunk=_chunk(cfg))
 
             x, state = _remat(body, x) if remat else body(x)
             if cache is not None:
@@ -246,8 +335,8 @@ def forward(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor, *, remat: bool
     aux loss 0 as a 0-dim f32 tensor). ``remat`` recomputes each mLSTM block
     in the backward. ``use_kernel`` is accepted for the common surface; no
     kernel is on this path."""
-    x = rms_norm(_run(cfg, params, tokens, remat=remat), params.final_norm, cfg.norm_eps)
-    logits = unembed(x, params.unembed)
+    with sh.gathered(params, recurse=False):
+        logits = _logits(cfg, params, _run(cfg, params, tokens, remat=remat))
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
@@ -256,7 +345,7 @@ def loss_fn(cfg: ArchConfig, params: XLSTM, batch, *, remat: bool = True,
     """batch: {"tokens", "labels"} (B, S). Returns (ce + aux, {"ce", "nll",
     "aux"}), 0-dim f32 tensors."""
     logits, aux = forward(cfg, params, batch["tokens"], remat=remat, use_kernel=use_kernel)
-    ce, nll = cross_entropy(logits, batch["labels"])
+    ce, nll = cross_entropy(logits, batch["labels"], tp=params.tp)
     return ce + aux, {"ce": ce, "nll": nll, "aux": aux}
 
 
@@ -287,8 +376,7 @@ def prefill(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor, cache, *,
     logits (B, 1, V), cache); ``lengths`` is the prompt's length, what
     ``repro``'s prefill leaves in a fresh cache."""
     x = _run(cfg, params, tokens, cache)
-    x = rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
-    logits = unembed(x, params.unembed)
+    logits = _logits(cfg, params, x[:, -1:])
     cache["lengths"].fill_(tokens.shape[1])
     return logits, cache
 
@@ -297,7 +385,7 @@ def decode_step(cfg: ArchConfig, params: XLSTM, cache, tokens: torch.Tensor, *,
                 use_kernel: bool = True):
     """One greedy decode step. tokens: (B, 1) int32, the current token.
     Returns (logits (B, 1, V), cache updated in place)."""
-    x = sh.shard(params.embed[tokens.long()], "batch", "seq", None)
+    x = _embed(params, tokens)
     for gi, group in enumerate(params.groups):
         if isinstance(group, SLSTMBlock):
             names = [f"g{gi}.{name}" for name in SLSTM_STATE]
@@ -310,7 +398,6 @@ def decode_step(cfg: ArchConfig, params: XLSTM, cache, tokens: torch.Tensor, *,
             x, state = mlstm_block_step(cfg, block, x, tuple(cache[n][j] for n in names))
             for n, t in zip(names, state):
                 cache[n][j].copy_(t)
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    logits = unembed(x, params.unembed)
+    logits = _logits(cfg, params, x)
     cache["lengths"].add_(1)
     return logits, cache

@@ -26,12 +26,20 @@ It also tracks the peak of the bytes the op results hold alive at once
 arguments. The function may run on ``meta`` tensors, which allocate
 nothing, so a full-size configuration is counted on a host.
 
+``count(..., scan_once=True)`` counts a sequential scan as the reference's
+counter counts a while loop, its body times its trip count: a scan that asks
+:func:`scans_once` runs one step through :func:`step_counted` (the sLSTM's
+per-token loop and the chunk loops of the SSD and the mLSTM,
+``models.ssm``), which counts it and its backward ``n`` times, so a long
+sequence is counted in the time of one step.
+
 :class:`Roofline` takes the chip's peaks as an argument; its default is one
 NVIDIA H100 SXM5 by its data sheet (dense bf16, HBM3, NVLink 4). No TPU
 figure is used.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import weakref
 from typing import Optional
@@ -74,6 +82,7 @@ class CountStats:
         default_factory=lambda: {k: 0 for k in sh.COLLECTIVES})
     dot_count: int = 0
     temp_bytes: int = 0
+    repeated_flops: float = 0.0  # what repeated() adds to the flop counter's total
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -114,15 +123,98 @@ class _ByteCounter(TorchDispatchMode):
         return out
 
 
-def count(fn, *args, **kwargs):
+# (stats, flop counter) of the count() that counts a scan once, or None
+_SCAN_ONCE: Optional[tuple] = None
+
+
+def scans_once() -> bool:
+    """Whether a scan may run one step under :func:`repeated` in place of
+    its loop: inside ``count(..., scan_once=True)``."""
+    return _SCAN_ONCE is not None
+
+
+@contextlib.contextmanager
+def repeated(n: int):
+    """Count what the enclosed region executes ``n`` times (0: not at all):
+    its FLOPs, HBM bytes, matmul-like ops and collectives (inside
+    ``count(..., scan_once=True)``; elsewhere nothing is counted)."""
+    if _SCAN_ONCE is None:
+        yield
+        return
+    stats, flop_mode = _SCAN_ONCE
+    before = (flop_mode.get_total_flops(), stats.hbm_bytes, stats.dot_count,
+              dict(sh.comm_counts), dict(sh.comm_bytes))
+    yield
+    k = n - 1
+    stats.repeated_flops += k * (flop_mode.get_total_flops() - before[0])
+    stats.hbm_bytes += k * (stats.hbm_bytes - before[1])
+    stats.dot_count += k * (stats.dot_count - before[2])
+    for kind in sh.COLLECTIVES:
+        sh.comm_counts[kind] += k * (sh.comm_counts[kind] - before[3][kind])
+        sh.comm_bytes[kind] += k * (sh.comm_bytes[kind] - before[4][kind])
+
+
+class _Counted(torch.autograd.Function):
+    """``fn(*inputs)`` whose forward and backward each count ``n`` times. The
+    backward recomputes the step's graph uncounted (a remat region's saved
+    tensors would each recompute the whole region), then counts its
+    gradient ``n`` times, as a middle step's: of every output and with
+    respect to every input, the carried state too (the last step's state
+    has no gradient, the first step's initial state needs none)."""
+
+    @staticmethod
+    def forward(ctx, fn, n, *inputs):
+        ctx.fn, ctx.n = fn, n
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*inputs)
+        with repeated(n):
+            return tuple(fn(*inputs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [t.detach().requires_grad_(t.is_floating_point()) for t in ctx.saved_tensors]
+        with torch.enable_grad(), repeated(0):
+            outputs = tuple(ctx.fn(*inputs))
+            grads = [torch.zeros_like(o) if g is None else g for o, g in zip(outputs, grads)]
+        pairs = [(o, g) for o, g in zip(outputs, grads) if o.requires_grad]
+        wanted = [t for t in inputs if t.requires_grad]
+        got = [None] * len(wanted)
+        if pairs and wanted:
+            with repeated(ctx.n):
+                got = torch.autograd.grad([o for o, _ in pairs], wanted, [g for _, g in pairs],
+                                          allow_unused=True)
+        got = iter(got)
+        return (None, None) + tuple(next(got) if t.requires_grad and need else None
+                                    for t, need in zip(inputs, ctx.needs_input_grad[2:]))
+
+
+def step_counted(fn, n: int, *inputs: torch.Tensor) -> tuple:
+    """One step of a scan, ``fn(*inputs)`` (tensors -> a tuple of tensors),
+    counted ``n`` times, and its backward ``n`` times where autograd records
+    it: for a scan that :func:`scans_once`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _Counted.apply(fn, n, *inputs)
+    with repeated(n):
+        return tuple(fn(*inputs))
+
+
+def count(fn, *args, scan_once: bool = False, **kwargs):
     """Run ``fn(*args, **kwargs)`` once and count what this rank executed.
-    Returns (its result, :class:`CountStats`). Resets the collective counters."""
+    Returns (its result, :class:`CountStats`). Resets the collective counters.
+    ``scan_once``: a scan counts one step times its trip count (the values
+    it returns are then not the scan's: for ``meta`` tensors)."""
+    global _SCAN_ONCE
     stats = CountStats()
     sh.reset_comm_counters()
     flop_mode = FlopCounterMode(display=False)
+    prev = _SCAN_ONCE
     with flop_mode, _ByteCounter(stats):
-        out = fn(*args, **kwargs)
-    stats.flops = float(flop_mode.get_total_flops())
+        _SCAN_ONCE = (stats, flop_mode) if scan_once else None
+        try:
+            out = fn(*args, **kwargs)
+        finally:
+            _SCAN_ONCE = prev
+    stats.flops = float(flop_mode.get_total_flops()) + stats.repeated_flops
     stats.count_by_kind = dict(sh.comm_counts)
     stats.bytes_by_kind = dict(sh.comm_bytes)
     stats.collective_bytes = float(sum(sh.comm_bytes.values()))

@@ -73,10 +73,6 @@ def make_train_step(model: Model, opt: AdamW, *, remat: bool = True,
     rank's program on the current mesh (``sharding.use_mesh``), ``batch``
     this rank's rows of the rules' ``"batch"`` axes:
 
-    - a family with no local program (hybrid, xlstm) gathers its blocks
-      first and keeps its block of each gradient (the model ranks compute
-      the same one), or reduce-scatters it over the data axes of an FSDP
-      placement;
     - the gradients of ``partial_grad_names`` are all-reduced over the model
       axis;
     - each gradient is summed over the batch axes (all-reduced, where the
@@ -93,9 +89,6 @@ def make_train_step(model: Model, opt: AdamW, *, remat: bool = True,
 
     def train_step(params, opt_state: AdamWState, batch):
         mesh = sh.current_mesh() if specs is not None else None
-        gathered = {}
-        if mesh is not None and not _sh.has_local_program(params):
-            gathered = _sh.gather_params(params, specs)
         params.requires_grad_(True)  # built frozen for serving
         params.zero_grad(set_to_none=True)
         if accum_steps == 1:
@@ -108,10 +101,7 @@ def make_train_step(model: Model, opt: AdamW, *, remat: bool = True,
             grads, metrics = _accumulate(model, params, batch, remat, accum_steps)
         if mesh is not None:
             seq = batch["tokens"].shape[1] if "tokens" in batch else None
-            grads = _reduce_grads(params, grads, specs, gathered,
-                                  _sh.partial_grad_names(params, seq))
-            if gathered:  # the update runs on the blocks
-                _sh.reshard_params(params, gathered)
+            grads = _reduce_grads(grads, specs, _sh.partial_grad_names(params, seq))
             keys = sorted(metrics)
             mean = sh.data_mean(torch.stack([metrics[k].float() for k in keys]),
                                 sh.logical_to_spec("batch")[0])
@@ -160,10 +150,11 @@ def _accumulate(model: Model, params, batch, remat: bool, n: int):
 
 
 @torch.no_grad()
-def _reduce_grads(params, grads: dict, specs: dict, gathered: dict, partial: list[str]) -> dict:
+def _reduce_grads(grads: dict, specs: dict, partial: list[str]) -> dict:
     """Each rank's gradients as the whole batch's mean of the whole
-    model's: partial sums all-reduced over the model axis, blocks kept of
-    gathered parameters, sums over the batch axes divided by their size."""
+    model's: partial sums all-reduced over the model axis, sums over the
+    batch axes divided by their size (an FSDP block's gradient is already
+    summed over its data axes, by its all-gather's backward)."""
     mesh = sh.current_mesh()
     batch = sh.logical_to_spec("batch")[0]
     batch_axes = (batch,) if isinstance(batch, str) else tuple(batch or ())
@@ -177,13 +168,9 @@ def _reduce_grads(params, grads: dict, specs: dict, gathered: dict, partial: lis
         if name in partial:
             g = sh.all_reduce(g, sh.MODEL_AXIS)
         summed: set[str] = set()
-        for dim, entry in enumerate(specs[name]):
+        for entry in specs[name]:
             if entry is None or entry == sh.MODEL_AXIS:
-                if entry is not None and name in gathered:  # the same on every model rank
-                    g = sh.local_block(g, dim, entry)
                 continue
-            if name in gathered:
-                g = sh.reduce_scatter(g, dim, entry)
             summed.update((entry,) if isinstance(entry, str) else entry)
         rest = tuple(a for a in batch_axes if a not in summed)
         if rest:

@@ -36,7 +36,24 @@ with 4 ranks llama's cache splits over head_dim, with 2 over kv heads) and
   every cross-attention). Tolerances as above, each tensor against its own
   largest |value|; AdamW's eps as ``_torch_dist_workers.TRAIN_EPS`` says.
 
-Each mesh's ranks are spawned once, with a join timeout of their own.
+The recurrent families run their own tensor-parallel program (the smoke
+zamba2-1.2b and xlstm-1.3b, on (1, 2) and (2, 2), zamba2 also on (1, 4)).
+At the smoke width every seam of that program falls inside a block:
+zamba2 has d_inner 512, 32 heads of P 16 and conv_dim 544, so a rank's
+block of the conv channels (272 or 136) is not its heads' channels (256 or
+128) and the packed projection [x, z, B, C, dt] is cut inside x; its shared
+attention (4 heads, 2 kv heads) splits over kv heads on 2 ranks and its
+cache over head_dim on 4. xlstm has d_inner 512 and mLSTM heads of P 128
+(the sLSTM's P is 64): at 2 ranks one rank holds all of ``w_up``'s ``a``
+columns and the other all of ``z``, and ``wq``/``wk``/``wv`` split on their
+input P axis. Each holds the prefill and the 8 greedy steps to the
+reference's unsharded logits (the rule above) and tokens, each step's
+collectives by kind against counts derived by hand, and no parameter block
+all-gathered over the model axis; ``Model.decode_tokens`` on (1, 2); and on
+(2, 2) one train step as above (the same guard on every train case).
+
+Each mesh's ranks are spawned once for the cases above and once for the
+recurrent families, with a join timeout of their own.
 """
 import json
 import tempfile
@@ -75,6 +92,12 @@ MESHES = {
     (1, 2): DECODE + ["onehot_equals_scatter", "decode_tokens[llama3.2-1b]"] + SHARD_MAP,
     (1, 4): DECODE + ["decode_whole_rows[llama3.2-1b]"] + SHARD_MAP,
     (2, 2): DECODE + ["slstm_branch"] + TRAIN + KNOBS,
+}
+ZAMBA, XLSTM = workers.RECURRENT
+RECURRENT_MESHES = {
+    (1, 2): [f"{c}[{a}]" for a in workers.RECURRENT for c in ("decode", "decode_tokens")],
+    (1, 4): [f"decode[{ZAMBA}]"],
+    (2, 2): [f"{c}[{a}]" for a in workers.RECURRENT for c in ("decode", "train_step")],
 }
 
 
@@ -177,7 +200,7 @@ def _write_slstm_ref(d: Path) -> None:
 @pytest.fixture(scope="module")
 def refs(tmp_path_factory):
     d = tmp_path_factory.mktemp("dist_refs")
-    for arch in ARCHS:
+    for arch in ARCHS + workers.RECURRENT:
         _write_model_refs(d, arch)
         _write_train_refs(d, arch)
     _write_train_refs(d, workers.ENCDEC)
@@ -190,16 +213,18 @@ def refs(tmp_path_factory):
 _RESULTS: dict = {}
 
 
-def _spawn(refs_dir: Path, shape: tuple[int, int]) -> list[dict]:
-    """Run every case of ``shape``'s mesh on its ranks once; per-rank results."""
-    if shape in _RESULTS:
-        return _RESULTS[shape]
+def _spawn(refs_dir: Path, shape: tuple[int, int], meshes: dict = MESHES) -> list[dict]:
+    """Run every case of ``shape``'s mesh in ``meshes`` on its ranks once;
+    per-rank results."""
+    key = (id(meshes), shape)
+    if key in _RESULTS:
+        return _RESULTS[key]
     world = shape[0] * shape[1]
     d = Path(tempfile.mkdtemp(dir=refs_dir))
     for f in refs_dir.iterdir():
         if f.is_file():
             (d / f.name).symlink_to(f)
-    ctx = mp.start_processes(workers.run, args=(world, shape, MESHES[shape], str(d)),
+    ctx = mp.start_processes(workers.run, args=(world, shape, meshes[shape], str(d)),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + JOIN_TIMEOUT_S
     try:
@@ -210,12 +235,20 @@ def _spawn(refs_dir: Path, shape: tuple[int, int]) -> list[dict]:
         for p in ctx.processes:
             if p.is_alive():
                 p.kill()
-    _RESULTS[shape] = [json.loads((d / f"r{r}.json").read_text()) for r in range(world)]
-    return _RESULTS[shape]
+    _RESULTS[key] = [json.loads((d / f"r{r}.json").read_text()) for r in range(world)]
+    return _RESULTS[key]
 
 
 @pytest.mark.parametrize("shape,case", [(s, c) for s, cases in MESHES.items() for c in cases],
                          ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
 def test_ranks_match_reference(refs, shape, case):
     for rank, res in enumerate(_spawn(refs, shape)):
+        assert res[case] == "ok", f"rank {rank} of mesh {shape}:\n{res[case]}"
+
+
+@pytest.mark.parametrize("shape,case",
+                         [(s, c) for s, cases in RECURRENT_MESHES.items() for c in cases],
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_recurrent_ranks_match_reference(refs, shape, case):
+    for rank, res in enumerate(_spawn(refs, shape, RECURRENT_MESHES)):
         assert res[case] == "ok", f"rank {rank} of mesh {shape}:\n{res[case]}"

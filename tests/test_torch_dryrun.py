@@ -13,7 +13,21 @@ in this container for the reference.
   ``accum_steps=2``, ``seq_parallel``) its own collectives by a formula
   derived by hand;
   decode_32k with ``decode_attn="shard_map"`` runs the length-sharded
-  flash-decode (three merges a layer, q gathered).
+  flash-decode (three merges a layer, q gathered);
+- zamba2-1.2b and xlstm-1.3b at the four shapes run their own
+  tensor-parallel program: rank 0's argument bytes are the blocks' sizes
+  under the specs (parameters, batch, cache, AdamW's three f32 copies),
+  and every all-gather is one of the program's activation gathers (a
+  Mamba2 block's conv output, an mLSTM block's projection, in decode an
+  sLSTM block's two gathers of h; in training each again in the remat
+  recompute), so none gathers a parameter; xlstm's train_4k and
+  prefill_32k each finish in under two minutes;
+- the scans counted once (``count(..., scan_once=True)``, what the dry-run
+  runs) against a full trace at a short length, depth cut: a prefill's
+  FLOPs, bytes, matmuls and collectives are equal; a train step's
+  collectives are equal, and its FLOPs and bytes are the full trace's or
+  at most 15% more (each trip counted as a middle step's body, with the
+  carried state's gradient, as a while loop's body times its trip count).
 """
 import json
 import os
@@ -179,3 +193,138 @@ def test_shard_map_decode_runs_the_length_sharded_path(llama):
     assert c_local["all-reduce"] == 3 * 16 + 1 and c_local["all-gather"] == 2 * 16
     # shard_map: three merges, q gathered (kv heads are whole)
     assert c_sm["all-reduce"] == 5 * 16 + 1 and c_sm["all-gather"] == 16
+
+
+_RECURRENT = r"""
+import json, sys, time
+from repro_torch.configs.registry import get_config
+from repro_torch.distributed import sharding as sh
+from repro_torch.launch import dryrun, shardings
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.specs import INPUT_SHAPES, config_for_shape, input_specs
+from repro_torch.models.model import _FAMILIES
+
+def nbytes(shape, dtype_size):
+    n = 1
+    for d in shape:
+        n *= d
+    return n * dtype_size
+
+def expected_args(arch, shape):
+    # rank 0's blocks under the specs, from the whole shapes
+    cfg = config_for_shape(get_config(arch), shape)
+    dryrun._fake_world(256)
+    mesh = make_production_mesh(device_type="cpu")
+    params = _FAMILIES[cfg.family][1](cfg, dryrun.META)
+    specs = shardings.param_specs(params, cfg, mesh)
+    spec = input_specs(cfg, shape)
+    axes = shardings.data_axes_of(mesh)
+    if INPUT_SHAPES[shape].global_batch % shardings._mesh_size(mesh, axes):
+        axes = None
+    total = 0
+    for name, p in params.named_parameters():
+        local = shardings.local_shape(tuple(p.shape), specs[name], mesh)
+        total += nbytes(local, p.element_size()) * (1 + (12 // p.element_size() if spec["kind"] == "train" else 0))
+    for k, t in spec["batch"].items():
+        total += nbytes(shardings.local_shape(tuple(t.shape), shardings.batch_spec(k, tuple(t.shape), mesh, axes), mesh), t.element_size())
+    if spec["cache"] is not None:
+        cspecs = shardings.cache_specs(spec["cache"], cfg, mesh)
+        for k, t in spec["cache"].items():
+            total += nbytes(shardings.local_shape(tuple(t.shape), cspecs[k], mesh), t.element_size())
+    return total
+
+out = {}
+for arch in ("zamba2-1.2b", "xlstm-1.3b"):
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        t0 = time.perf_counter()
+        res = dryrun.run_one(arch, shape, save=False, verbose=False)
+        res["wall_s"] = time.perf_counter() - t0
+        res["expected_args"] = expected_args(arch, shape)
+        out[f"{arch}/{shape}"] = res
+assert "jax" not in sys.modules, "the dry-run imported jax"
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def recurrent():
+    """zamba2-1.2b and xlstm-1.3b at the four shapes through ``run_one``,
+    with the wall time of each, in one child process."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _RECURRENT], capture_output=True, text=True,
+                         env=env, timeout=900, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _activation_gathers(arch: str, kind: str) -> int:
+    """The all-gathers of the recurrent programs (see the module docstring):
+    zamba2-1.2b has 38 Mamba2 blocks (its shared attention's 32 kv heads
+    split 16 ways, so its decode gathers nothing); xlstm-1.3b 42 mLSTM and 6
+    sLSTM blocks."""
+    if arch == "zamba2-1.2b":
+        return 38 * (2 if kind == "train" else 1)
+    return 42 * (2 if kind == "train" else 1) + (2 * 6 if kind == "decode" else 0)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k", "long_500k"])
+def test_recurrent_families_run_their_local_program(recurrent, arch, shape):
+    res = recurrent[f"{arch}/{shape}"]
+    assert res["status"] == "ok", res
+    assert res["memory"]["argument_bytes"] == res["expected_args"]
+    counts = res["roofline"]["collective_counts"]
+    kind = {"train_4k": "train", "prefill_32k": "prefill"}.get(shape, "decode")
+    assert counts["all-gather"] == _activation_gathers(arch, kind), counts
+    # every reduce-scatter is an activation gather's backward
+    assert counts["reduce-scatter"] == (_activation_gathers(arch, kind) // 2
+                                        if kind == "train" else 0), counts
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_xlstm_long_shapes_finish_in_two_minutes(recurrent, shape):
+    assert recurrent[f"xlstm-1.3b/{shape}"]["wall_s"] < 120
+
+
+_SCAN_ONCE = r"""
+import dataclasses, json, sys
+from repro_torch.configs.registry import get_config
+from repro_torch.distributed import sharding as sh
+from repro_torch.launch import dryrun, shardings, specs
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.roofline.count import count
+
+arch, shape, seq, layers = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+specs.INPUT_SHAPES[shape] = dataclasses.replace(specs.INPUT_SHAPES[shape], seq_len=seq)
+dryrun._fake_world(256)
+mesh = make_production_mesh(device_type="cpu")
+cfg = dataclasses.replace(specs.config_for_shape(get_config(arch), shape), n_layers=layers)
+out = {}
+for once in (True, False):
+    with sh.use_mesh(mesh, shardings.make_rules(cfg, mesh)):
+        fn, _ = dryrun.build_lowerable(cfg, shape, mesh)
+        _, st = count(fn, scan_once=once)
+    out[str(once)] = {"flops": st.flops, "bytes": st.hbm_bytes, "dots": st.dot_count,
+                      "collectives": st.count_by_kind, "wire": st.collective_bytes}
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.parametrize("arch,shape,seq,layers", [
+    ("xlstm-1.3b", "prefill_32k", 512, 8), ("xlstm-1.3b", "train_4k", 512, 8),
+    ("zamba2-1.2b", "prefill_32k", 1024, 6), ("zamba2-1.2b", "train_4k", 1024, 6)])
+def test_scan_counted_once_matches_a_full_trace(arch, shape, seq, layers):
+    """At ``seq`` tokens (2 and 4 chunks of 256; the sLSTM's 512 steps) and
+    ``layers`` layers (one mLSTM group and its sLSTM; one Mamba2 group)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _SCAN_ONCE, arch, shape, str(seq), str(layers)],
+                         capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    once, full = out["True"], out["False"]
+    assert once["collectives"] == full["collectives"] and once["wire"] == full["wire"]
+    if shape == "prefill_32k":
+        assert once == full
+    else:
+        for key in ("flops", "bytes"):
+            assert full[key] <= once[key] <= 1.15 * full[key], (key, once[key], full[key])

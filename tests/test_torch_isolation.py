@@ -24,7 +24,7 @@ VERBATIM = [
     "sim/platform.py", "sim/workload.py", "sim/metrics.py", "sim/experiment.py",
     "sim/arrivals.py", "sim/workflow_dag.py", "configs/registry.py",
     "fleet/__init__.py", "fleet/policies.py", "fleet/resilience.py", "fleet/router.py",
-    "data/pipeline.py",
+    "data/pipeline.py", "analysis/rules/controller.py", "analysis/rules/faults.py",
 ] + sorted(
     f"configs/{p.name}" for p in (REF / "configs").glob("*.py")
     if p.name not in ("base.py", "registry.py")
@@ -109,10 +109,48 @@ def test_scans_cover_every_module_of_the_port():
            "models/xlstm.py", "optim/adamw.py", "optim/schedule.py", "train/loop.py",
            "data/pipeline.py", "checkpoint/ckpt.py", "launch/train.py",
            "distributed/sharding.py", "launch/mesh.py", "launch/shardings.py",
-           "launch/specs.py", "launch/serve.py", "launch/dryrun.py", "roofline/count.py"}
+           "launch/specs.py", "launch/serve.py", "launch/dryrun.py", "roofline/count.py",
+           "analysis/__main__.py", "analysis/lint.py",
+           "analysis/rules/controller.py", "analysis/rules/faults.py",
+           "analysis/rules/purity.py", "analysis/rules/recompile.py"}
     assert new <= scanned
     mods = _port_modules()
     assert {"repro_torch." + m[:-3].replace("/", ".") for m in new} <= set(mods)
+
+
+class _Mesh:
+    """The 16x16 production mesh as the pure spec functions read it."""
+    shape = {"data": 16, "model": 16}
+    axis_names = ("data", "model")
+
+
+def test_every_family_runs_its_local_program():
+    """Placement marks every module of every arch with what it split (the
+    tensor-parallel local program of each family), on the 16x16 mesh:
+    xlstm-1.3b's recurrent blocks and zamba2-1.2b's Mamba2 blocks split."""
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.launch import shardings
+    from repro_torch.models.attention import Attention
+    from repro_torch.models.hybrid import MambaBlock
+    from repro_torch.models.layers import SwiGLU
+    from repro_torch.models.model import _FAMILIES
+    from repro_torch.models.moe import MoE
+    from repro_torch.models.xlstm import MLSTMBlock, SLSTMBlock
+
+    kinds = (Attention, SwiGLU, MoE, MambaBlock, MLSTMBlock, SLSTMBlock)
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        params = _FAMILIES[cfg.family][1](cfg, torch.device("meta"))
+        specs = shardings.param_specs(params, cfg, _Mesh())
+        shardings._tensor_parallel(params, specs, cfg, _Mesh())
+        assert params.tp is not None, arch
+        marked = [m for m in params.modules() if isinstance(m, kinds)]
+        assert marked and all(m.tp is not None for m in marked), arch
+        for m in marked:
+            if isinstance(m, MambaBlock):
+                assert m.tp.heads, arch
+            elif isinstance(m, (MLSTMBlock, SLSTMBlock)):
+                assert m.tp.inner, arch
 
 
 def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
