@@ -39,6 +39,14 @@ objects (another graph, tensors of an earlier request) inside the capture
 (``torch.cuda.graph`` no longer collects first by default).
 
 A failed capture raises; nothing falls back to eager execution.
+
+With the tracer on (:mod:`repro_torch.trace`), each call opens
+``graph.weights`` around the check of the weights' addresses, then
+``graph.prefill`` or ``graph.decode`` (the key an attribute) with its
+children ``graph.copy_in``, ``graph.replay`` (the host inside
+``CUDAGraph.replay()``) and ``graph.copy_out`` and the device span
+``device.prefill`` or ``device.decode`` around the replay; a capture opens
+``graph.capture`` (the key and the graph's scope map, ``_Graph.scopes``).
 """
 from __future__ import annotations
 
@@ -49,7 +57,12 @@ from typing import Callable, Optional
 
 import torch
 
+from .. import trace
 from ..kernels import _build, ops
+
+# the host and device span of a run of each kind of graph
+_SPANS = {"prefill": ("graph.prefill", "device.prefill"),
+          "decode": ("graph.decode", "device.decode")}
 
 
 @dataclasses.dataclass
@@ -58,6 +71,9 @@ class _Graph:
     inputs: torch.Tensor                 # static input
     output: Optional[torch.Tensor]       # static output, rewritten by each replay
     recorded: dict[str, dict[str, int]]  # counter deltas made while captured
+    # (scope, first operation, end) of each module's nodes in replay order;
+    # recorded while the tracer is on, else None
+    scopes: Optional[list[tuple[str, int, int]]] = None
 
 
 class GraphCache:
@@ -95,27 +111,35 @@ class GraphCache:
             if cache[name].shape != buf.shape:
                 raise ValueError(f"cache {name} {tuple(cache[name].shape)} does not match "
                                  f"the graph's {tuple(buf.shape)}")
-        weights = tuple(p.data_ptr() for p in params.parameters())
-        if params is not self._params or weights != self._weights:
-            self.stats["dropped"] += len(self.graphs)
-            self.graphs.clear()
-            self._params, self._weights = params, weights
+        with trace.span("graph.weights"):
+            weights = tuple(p.data_ptr() for p in params.parameters())
+            if params is not self._params or weights != self._weights:
+                self.stats["dropped"] += len(self.graphs)
+                self.graphs.clear()
+                self._params, self._weights = params, weights
         g = self.graphs.get(key)
         if g is None:
-            g = self.graphs[key] = self._capture(key, inputs, body,
-                                                 next(params.parameters()).dtype)
-        foreign = cache is not static
-        if foreign:
-            for name, buf in static.items():
-                buf.copy_(cache[name])
-        g.inputs.copy_(inputs)
-        g.graph.replay()
-        _build.replayed(g.recorded)
-        self.stats["replays"] += 1
-        if foreign:
-            for name, buf in static.items():
-                cache[name].copy_(buf)
-        return None if g.output is None else g.output.clone()
+            with trace.span("graph.capture", key=key) as sp:
+                g = self.graphs[key] = self._capture(key, inputs, body,
+                                                     next(params.parameters()).dtype)
+                sp.set(scopes=g.scopes)
+        host, device = _SPANS[key[0]]
+        with trace.span(host, key=key):
+            foreign = cache is not static
+            with trace.span("graph.copy_in"):
+                if foreign:
+                    for name, buf in static.items():
+                        buf.copy_(cache[name])
+                g.inputs.copy_(inputs)
+            with trace.device_span(device), trace.span("graph.replay", key=key):
+                g.graph.replay()
+            _build.replayed(g.recorded)
+            self.stats["replays"] += 1
+            with trace.span("graph.copy_out"):
+                if foreign:
+                    for name, buf in static.items():
+                        cache[name].copy_(buf)
+                return None if g.output is None else g.output.clone()
 
     def _capture(self, key: tuple, inputs: torch.Tensor,
                  body: Callable[[torch.Tensor], Optional[torch.Tensor]],
@@ -137,10 +161,11 @@ class GraphCache:
         try:
             with _build.recording() as recorded:
                 with torch.cuda.graph(graph, pool=self.pool, stream=self._stream):
-                    output = body(static_inputs)
+                    with trace.capture() as scopes:
+                        output = body(static_inputs)
         finally:
             if collecting:
                 gc.enable()
         self.capture_ms[key] = (time.perf_counter() - t0) * 1e3
         self.stats["captures"] += 1
-        return _Graph(graph, static_inputs, output, recorded)
+        return _Graph(graph, static_inputs, output, recorded, scopes.scopes)

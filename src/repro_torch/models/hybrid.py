@@ -51,6 +51,7 @@ from torch import nn
 
 from typing import Optional
 
+from .. import trace
 from ..configs.base import ArchConfig
 from ..distributed import sharding as sh
 from ..distributed.sharding import shard
@@ -366,19 +367,23 @@ def prefill(cfg: ArchConfig, params: Zamba2, tokens: torch.Tensor, cache, *,
     x, positions = _embed(params, tokens)
     for gi, layers, attn in _groups(cfg):
         for li in layers:
-            x, (h, ctx) = mamba_block(cfg, params.mamba[li], x)
-            cache["h"][li].copy_(h)
-            cache["conv"][li].copy_(ctx)
+            with trace.scope("mamba2"):
+                x, (h, ctx) = mamba_block(cfg, params.mamba[li], x)
+                cache["h"][li].copy_(h)
+                cache["conv"][li].copy_(ctx)
         if attn:
-            x, (k, v) = _shared_attn_prefill(cfg, params.shared_attn, x, positions, use_kernel)
-            if S > S_c:
-                # keep the last `window` positions; ring alignment: slot = pos % window
-                shift = (S - S_c) % S_c
-                k = torch.roll(k[:, :, -S_c:], shifts=shift, dims=2)
-                v = torch.roll(v[:, :, -S_c:], shifts=shift, dims=2)
-            store_prefill_kv(cache["attn_k"][gi], k, tp)
-            store_prefill_kv(cache["attn_v"][gi], v, tp)
-    logits = _logits(cfg, params, x[:, -1:])
+            with trace.scope("shared_block"):
+                x, (k, v) = _shared_attn_prefill(cfg, params.shared_attn, x, positions,
+                                                 use_kernel)
+                if S > S_c:
+                    # keep the last `window` positions; ring alignment: slot = pos % window
+                    shift = (S - S_c) % S_c
+                    k = torch.roll(k[:, :, -S_c:], shifts=shift, dims=2)
+                    v = torch.roll(v[:, :, -S_c:], shifts=shift, dims=2)
+                store_prefill_kv(cache["attn_k"][gi], k, tp)
+                store_prefill_kv(cache["attn_v"][gi], v, tp)
+    with trace.scope("logits"):
+        logits = _logits(cfg, params, x[:, -1:])
     cache["lengths"].fill_(S)
     return logits, cache
 
@@ -392,19 +397,22 @@ def decode_step(cfg: ArchConfig, params: Zamba2, cache, tokens: torch.Tensor, *,
     lengths = cache["lengths"]
     for gi, layers, attn in _groups(cfg):
         for li in layers:
-            x, (h, ctx) = mamba_block_step(cfg, params.mamba[li], x,
-                                           (cache["h"][li], cache["conv"][li]))
-            cache["h"][li].copy_(h)
-            cache["conv"][li].copy_(ctx)
+            with trace.scope("mamba2"):
+                x, (h, ctx) = mamba_block_step(cfg, params.mamba[li], x,
+                                               (cache["h"][li], cache["conv"][li]))
+                cache["h"][li].copy_(h)
+                cache["conv"][li].copy_(ctx)
         if attn:
             p = params.shared_attn
-            h_att = decode_attention_step(
-                p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cache["attn_k"][gi],
-                cache["attn_v"][gi], lengths, rope_theta=cfg.rope_theta, eps=cfg.norm_eps,
-                window=cfg.sliding_window, use_kernel=use_kernel,
-            )
-            x = x + h_att
-            x = x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
-    logits = _logits(cfg, params, x)
+            with trace.scope("shared_block"):
+                h_att = decode_attention_step(
+                    p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cache["attn_k"][gi],
+                    cache["attn_v"][gi], lengths, rope_theta=cfg.rope_theta, eps=cfg.norm_eps,
+                    window=cfg.sliding_window, use_kernel=use_kernel,
+                )
+                x = x + h_att
+                x = x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
+    with trace.scope("logits"):
+        logits = _logits(cfg, params, x)
     lengths.add_(1)
     return logits, cache

@@ -61,6 +61,7 @@ from typing import Optional, Union
 
 import torch
 
+from .. import trace
 from .._device import resolve_device
 from ..configs.base import ArchConfig
 from ..distributed import sharding as sh
@@ -254,8 +255,9 @@ class Model:
         tok = tokens
         for t in range(n_steps):
             logits, cache = self.decode_step(params, cache, tok)
-            tok = greedy_token(gather_logits(params, logits))
-            out[:, t] = tok[:, 0]
+            with trace.scope("logits"):
+                tok = greedy_token(gather_logits(params, logits))
+                out[:, t] = tok[:, 0]
         return out
 
 

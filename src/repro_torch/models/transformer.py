@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .. import trace
 from ..configs.base import ArchConfig
 from ..distributed import sharding as sh
 from ..distributed.sharding import shard
@@ -105,24 +106,28 @@ def _mlp_apply(cfg: ArchConfig, p: Block, x):
 def _layer_prefill(cfg: ArchConfig, p: Block, x, positions, window, use_kernel, with_aux):
     """``with_aux=False`` skips the aux loss that a caller would drop (in
     ``repro``, jit removes it as dead code) and returns 0.0 for it."""
-    h, (k, v) = prefill_attention(
-        p.attn, rms_norm(x, p.ln1, cfg.norm_eps), positions,
-        rope_theta=cfg.rope_theta, eps=cfg.norm_eps, window=window, use_kernel=use_kernel,
-    )
-    x = x + h
-    h = rms_norm(x, p.ln2, cfg.norm_eps)
-    m, aux = _mlp_apply(cfg, p, h) if with_aux else (p.mlp(h), 0.0)
-    return x + m, (k, v), aux
+    with trace.scope("attention"):
+        h, (k, v) = prefill_attention(
+            p.attn, rms_norm(x, p.ln1, cfg.norm_eps), positions,
+            rope_theta=cfg.rope_theta, eps=cfg.norm_eps, window=window, use_kernel=use_kernel,
+        )
+        x = x + h
+    with trace.scope("ffn"):
+        h = rms_norm(x, p.ln2, cfg.norm_eps)
+        m, aux = _mlp_apply(cfg, p, h) if with_aux else (p.mlp(h), 0.0)
+        return x + m, (k, v), aux
 
 
 def _layer_decode(cfg: ArchConfig, p: Block, x, k_cache, v_cache, lengths, window, use_kernel):
-    h = decode_attention_step(
-        p.attn, rms_norm(x, p.ln1, cfg.norm_eps), k_cache, v_cache, lengths,
-        rope_theta=cfg.rope_theta, eps=cfg.norm_eps, window=window, use_kernel=use_kernel,
-    )
-    x = x + h
+    with trace.scope("attention"):
+        h = decode_attention_step(
+            p.attn, rms_norm(x, p.ln1, cfg.norm_eps), k_cache, v_cache, lengths,
+            rope_theta=cfg.rope_theta, eps=cfg.norm_eps, window=window, use_kernel=use_kernel,
+        )
+        x = x + h
     # the FFN alone: repro computes the aux here and drops it (jit removes it)
-    return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
+    with trace.scope("ffn"):
+        return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
 
 
 # ---------------------------------------------------------------------------
@@ -213,17 +218,19 @@ def prefill(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, cache, *
         positions = _positions(tokens)
         for i, p in enumerate(params.layers):
             x, (k, v), _ = _layer_prefill(cfg, p, x, positions, window, use_kernel, False)
-            if window is not None and S > S_c:
-                # keep the last `window` positions; ring alignment: slot = pos % window
-                shift = (S - S_c) % S_c
-                k = torch.roll(k[:, :, -S_c:], shifts=shift, dims=2)
-                v = torch.roll(v[:, :, -S_c:], shifts=shift, dims=2)
-            store_prefill_kv(cache["k"][i], k, p.attn.tp)
-            store_prefill_kv(cache["v"][i], v, p.attn.tp)
-    if sp:  # the last position is on the last rank's block
-        x = sh.all_gather(x, 1)
-    x = rms_norm(x[:, -1:, :], params.final_norm, cfg.norm_eps)
-    logits = unembed(x, params.out_proj())
+            with trace.scope("attention"):
+                if window is not None and S > S_c:
+                    # keep the last `window` positions; ring alignment: slot = pos % window
+                    shift = (S - S_c) % S_c
+                    k = torch.roll(k[:, :, -S_c:], shifts=shift, dims=2)
+                    v = torch.roll(v[:, :, -S_c:], shifts=shift, dims=2)
+                store_prefill_kv(cache["k"][i], k, p.attn.tp)
+                store_prefill_kv(cache["v"][i], v, p.attn.tp)
+    with trace.scope("logits"):
+        if sp:  # the last position is on the last rank's block
+            x = sh.all_gather(x, 1)
+        x = rms_norm(x[:, -1:, :], params.final_norm, cfg.norm_eps)
+        logits = unembed(x, params.out_proj())
     cache["lengths"].fill_(S)
     return logits, cache
 
@@ -237,7 +244,8 @@ def decode_step(cfg: ArchConfig, params: Transformer, cache, tokens: torch.Tenso
     lengths = cache["lengths"]
     for i, p in enumerate(params.layers):
         x = _layer_decode(cfg, p, x, cache["k"][i], cache["v"][i], lengths, window, use_kernel)
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    logits = unembed(x, params.out_proj())
+    with trace.scope("logits"):
+        x = rms_norm(x, params.final_norm, cfg.norm_eps)
+        logits = unembed(x, params.out_proj())
     lengths.add_(1)
     return logits, cache

@@ -43,6 +43,11 @@ accounts for the family asymmetry when an in-flight stream migrates to a new
 replica: full-attention archs must re-prefill their KV cache (enc-dec archs
 re-encode the audio window), SSM archs just replay O(d_state) state
 (DESIGN.md §4).
+
+With the tracer on (:mod:`repro_torch.trace`), :meth:`body` opens
+``backend.body``, and :meth:`run_model` inside it ``backend.h2d`` (the prompt
+to the device) and ``backend.readback`` (the host waiting for the tokens),
+after which it records a device anchor.
 """
 from __future__ import annotations
 
@@ -53,6 +58,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.lifecycle import FunctionInstance
 from repro_torch.core.substrate import SubstrateKnobs, ar1_drift, sample_jitter
@@ -192,7 +198,8 @@ class ModelServingBackend:
         load: int = 1,
     ) -> tuple[float, Any]:
         req: ServeRequest = payload
-        tokens = self.run_model(req, load=load)
+        with trace.span("backend.body"):
+            tokens = self.run_model(req, load=load)
         work = self.c_prefill * len(req.prompt) + self.c_decode * req.max_new_tokens
         return work / inst.speed_factor, tokens
 
@@ -220,7 +227,8 @@ class ModelServingBackend:
         mode = mode if mode is not None else self.decode_mode
         model = self.model
         T = req.max_new_tokens
-        prompt = torch.as_tensor(np.asarray(req.prompt, np.int32), device=self.device)[None]
+        with trace.span("backend.h2d"):
+            prompt = torch.as_tensor(np.asarray(req.prompt, np.int32), device=self.device)[None]
         S = int(prompt.shape[1])
 
         if mode == "eager":
@@ -253,7 +261,10 @@ class ModelServingBackend:
         _, cache = model.prefill_jit(self.params, batch, model.static_cache(B, cache_len))
         toks, _ = model.decode_tokens(self.params, cache, tok, Tb)
         self.jit_stats["jit_calls"] += 1
-        return toks[0, :T].cpu().numpy().astype(np.int32)
+        with trace.span("backend.readback"):
+            out = toks[0, :T].cpu().numpy().astype(np.int32)
+        trace.anchor(self.device)
+        return out
 
     def prefill_inputs(self, prompt: torch.Tensor) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
         """(prefill batch, first decode token) for ``prompt`` (B, S) on the

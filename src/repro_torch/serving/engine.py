@@ -23,6 +23,10 @@ The model compute is REAL (PyTorch prefill/decode of the configured arch,
 attention on the hand-written kernels on the card); time is simulated as
 work/speed so the selection dynamics are measurable without a fleet. The
 gate therefore makes exactly ``repro``'s decisions on the same seed.
+
+With the tracer on (:mod:`repro_torch.trace`), :meth:`MinosServingEngine.serve`
+opens one ``serve.request`` span a request, the root of its spans, which
+carries its ``request_id`` (the key of its :class:`ServeResult`).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from typing import TYPE_CHECKING, Any, Optional
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.cost import Pricing
 from repro_torch.core.lifecycle import FunctionInstance
@@ -125,11 +130,12 @@ class MinosServingEngine(SubstrateEngine):
     def serve(self, requests: list[ServeRequest]) -> list[ServeResult]:
         results: list[ServeResult] = []
         for req in requests:
-            done: list[RequestResult] = []
-            self.submit(req, done.append)
-            self.loop.run_all()
-            assert done, "request did not complete"
-            res = done[0]
+            with trace.span("serve.request", request_id=req.request_id):
+                done: list[RequestResult] = []
+                self.submit(req, done.append)
+                self.loop.run_all()
+                assert done, "request did not complete"
+                res = done[0]
             results.append(ServeResult(
                 request_id=req.request_id,
                 tokens=res.output,
