@@ -5,7 +5,7 @@
 Run from the root of a checkout. It imports ``src/repro_torch`` (never
 ``jax``, never ``repro``) and, in order:
 
-1. builds the three hand-written kernels from ``src/repro_torch/kernels/csrc``;
+1. builds the four hand-written kernels from ``src/repro_torch/kernels/csrc``;
 2. holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes, at the sweep shapes of ``tests/test_kernels.py`` and
    at the edge shapes of ``tests/test_torch_kernels_cuda.py``, and K2 with
@@ -93,9 +93,10 @@ Run from the root of a checkout. It imports ``src/repro_torch`` (never
    after each of the first 6 of its 7 Mamba groups; bf16, random weights
    from ``--seed``) in both arms on the captured path, with the launches
    held exactly (K2 once an application a request, K3 once an application a
-   decode step, no plain call), captured against eager (K/V rows, SSD
+   decode step, the SSD kernel once a Mamba2 layer a request, no plain
+   call), captured against eager (K/V rows, SSD
    states and conv contexts), and the kernel path against the plain path in
-   f32 and bf16 as phase 5; (b) the same requests on full-width xlstm-1.3b
+   f32 (a 600-token prompt, three SSD chunks) and bf16 as phase 5; (b) the same requests on full-width xlstm-1.3b
    (6 x [7 mLSTM + 1 sLSTM], 4 heads, bf16), which launches no kernel and
    calls no plain version, captured against eager (the captured requests
    back to back on one static cache, the eager ones each from a fresh
@@ -105,7 +106,10 @@ Run from the root of a checkout. It imports ``src/repro_torch`` (never
    largest, greedy tokens equal); (d) for both, phase 6's times, each
    decode step's byte bound, the graphs' memory, and K2 and K3 at zamba2's
    served shapes and K2 where the window masks (q(1,32,1024,64), window
-   256) beside SDPA with a band mask;
+   256) beside SDPA with a band mask; the SSD kernel at the documents'
+   traffic's shortest and longest prompts (S 2048 and 3840, 8 and 15
+   chunks), y and the final state held against the plain scan in f32 to
+   1e-5 of their largest value, and timed against the plain scan;
 11. training (``train/loop.py``, ``optim/adamw.py``): (a) full-width,
    full-depth llama3.2-1b (bf16 parameters, f32 master/mu/nu, remat on)
    takes 20 AdamW steps (``TrainConfig(peak_lr=1e-3, warmup_steps=2)``) at
@@ -221,6 +225,8 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:80"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:72"),
+    # repro's ssd_chunked (src/repro/models/ssm.py) is plain jnp: no Pallas kernel
+    "ssd_chunked": ("src/repro_torch/kernels/csrc/ssd_chunk.cu", "none"),
 }
 # rtol = atol, per kernel and dtype (PERF.md says how each was set). bf16
 # flash: the kernel rounds P to bf16 before PV, as the Pallas kernel does, and
@@ -251,6 +257,13 @@ XLSTM_CPU_STEPS = 8    # its teacher-forced decode steps
 
 class PhaseError(RuntimeError):
     pass
+
+
+def kernel_counts(**given) -> dict:
+    """Every kernel's count: ``given``'s, 0 for the others."""
+    from repro_torch.kernels import _build
+
+    return _build.counts(**given)
 
 
 def card() -> str:
@@ -641,9 +654,10 @@ def f32_kernel_vs_plain(cfg, prompt, T, seed, ph="5"):
     if cfg.moe is not None:
         routing = (f"; routing choices both paths made: "
                    f"{agreement(chosen['kernel'], chosen['plain']):.6f}")
+    order = "attention's and the SSD scan's" if cfg.family == "hybrid" else "attention's"
     print(f"[{ph}] f32 {cfg.arch_id} full width ({cfg.n_layers} layers), one {prompt.shape[1]}-token "
           f"prompt, {T} steps: max |logit difference| / max |logit| = {worst:.3e} (tolerance 1e-4: "
-          f"the paths differ only in attention's summation order); greedy tokens equal: "
+          f"the paths differ only in {order} summation order); greedy tokens equal: "
           f"{torch.equal(tk, tp)}{routing}")
     if not finite or worst > 1e-4 or not torch.equal(tk, tp):
         raise PhaseError(f"f32 kernel path disagrees with the plain path ({cfg.arch_id})")
@@ -775,16 +789,81 @@ def decode_row(shape, valid):
                                                             enable_gqa=True)), bms, by)
 
 
+def ssd_flops(B, S, H, N, P, L) -> int:
+    """The products of the chunked SSD, two operations a multiply-add: C.B
+    once a chunk for every head (one group), and for each head the
+    intra-chunk product over the pairs j <= i, C_i.H_c and the chunk's own
+    state at each position."""
+    flops = 0
+    for c0 in range(0, S, L):
+        n = min(L, S - c0)
+        pairs = n * (n + 1) // 2
+        flops += 2 * N * pairs + H * (2 * P * pairs + 2 * 2 * N * P * n)
+    return B * flops
+
+
+def ssd_row(S, H, N, chunk):
+    """The SSD kernel at zamba2's shape, x (1, S, H, N) bf16 with d_state N
+    and one group, its x, Bm and Cm slices of one packed (1, S, H N + 2 N)
+    tensor as the conv's output hands them over; ``dt`` the model's softplus
+    of a projection, ``A`` its initial -linspace(1, 16, H). y and the final
+    state are held against the plain scan in f32 (the same bf16 values
+    widened) to 1e-5 of max |want| (``tests/test_torch_ssm.py``'s rule), once
+    as the model's ``dt`` gives them and once with ``dt`` a hundred times
+    smaller, so that the state carried over the chunks reaches every row;
+    the bf16 call must give the f32 call's y rounded and its state bit for
+    bit. Then both timed in bf16, as :func:`flash_row`; no library has the
+    scan."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunked
+    from repro_torch.models.ssm import ssd_chunked as plain_scan
+
+    gen = torch.Generator(device=DEVICE).manual_seed(S)
+    packed = torch.randn(1, S, H * N + 2 * N, generator=gen, device=DEVICE).to(torch.bfloat16)
+
+    def split(t):
+        return t[..., :H * N].reshape(1, S, H, N), t[..., H * N:H * N + N], t[..., H * N + N:]
+    x16, B16, C16 = split(packed)
+    x32, B32, C32 = split(packed.float())
+    dt = F.softplus(torch.randn(1, S, H, generator=gen, device=DEVICE))
+    A = -torch.linspace(1.0, 16.0, H, device=DEVICE)
+    D = torch.randn(H, generator=gen, device=DEVICE)
+    errs, abs_err, same = [], 0.0, True
+    with torch.no_grad():
+        for scale in (1.0, 0.01):
+            want_y, want_h = plain_scan(x32, dt * scale, A, B32, C32, D, chunk=chunk)
+            y, h = ssd_chunked(x32, dt * scale, A, B32, C32, D, chunk=chunk)
+            y16, h16 = ssd_chunked(x16, dt * scale, A, B16, C16, D, chunk=chunk)
+            errs.append(tuple(max_err(a, b) / b.abs().max().item()
+                              for a, b in ((y, want_y), (h, want_h))))
+            abs_err = max(abs_err, max_err(y, want_y))
+            same &= torch.equal(y16, y.to(torch.bfloat16)) and torch.equal(h16, h)
+    text = (f"x(1,{S},{H},{N}) bf16 strided, d_state {N}, chunk {chunk} "
+            f"({-(-S // chunk)} chunks)")
+    print(f"[10d] ssd_chunked {text}: y, h within {errs[0][0]:.2e}, {errs[0][1]:.2e} of max "
+          f"|want| (dt x 0.01: {errs[1][0]:.2e}, {errs[1][1]:.2e}; rule 1e-5); bf16 call the "
+          f"f32 call rounded: {same}")
+    if max(max(e) for e in errs) > 1e-5 or not same:
+        raise PhaseError(f"ssd_chunked kernel disagrees with the plain scan at S {S}")
+    nbytes = (2 * (S * H * N + 2 * S * N) * packed.element_size()  # x, Bm, Cm read; y written
+              + 4 * (S * H + H * N * N + 2 * H))                    # dt, h_final, A, D
+    bms, by = bound(nbytes, ssd_flops(1, S, H, N, N, chunk), torch.float32)
+    return (text, abs_err,
+            graph_ms(lambda: ssd_chunked(x16, dt, A, B16, C16, D, chunk=chunk)),
+            graph_ms(lambda: plain_scan(x16, dt, A, B16, C16, D, chunk=chunk)), None, bms, by)
+
+
 def report_rows(rows, launches, card_str, ph, suffix=""):
     """Prints ``(name, row)`` pairs and returns their entries of the
     ``kernels`` JSON line, named ``name + suffix``; ``launches`` None: a
-    shape that no served path runs (the entries are then not for that line)."""
+    shape that no served path runs (the entries are then not for that line);
+    a library ms of None: no library has the operation."""
     out = []
     for name, (shape, err, ms, plain_ms, lib_ms, bms, by) in rows:
         where = ("not on a served path" if launches is None
                  else f"launches on the main path {launches[name]}")
+        lib = "none" if lib_ms is None else f"{lib_ms:.5f} ms"
         print(f"[{ph}] {name + suffix:16s} {shape}: kernel {ms:.5f} ms | bound {bms:.5f} ms ({by}) | "
-              f"plain {plain_ms:.5f} ms | library {lib_ms:.5f} ms | max_abs_err {err:.4e} | "
+              f"plain {plain_ms:.5f} ms | library {lib} | max_abs_err {err:.4e} | "
               f"{where} ({card_str})")
         src, replaces = SOURCES[name]
         out.append({"name": name + suffix, "route": "cuda", "source": src, "replaces": replaces,
@@ -1120,8 +1199,8 @@ def moe_phase(args, card_str):
     S, tb = len(longest.prompt), _bucket(args.new_tokens, base=8)
     # 7a. serving, both arms: one K2 launch a layer a request, one K3 launch
     # a layer a decode step, and nothing else
-    expected = {"matmul": 0, "flash_attention": 2 * len(reqs) * cfg.n_layers,
-                "decode_attention": 2 * len(reqs) * cfg.n_layers * tb}
+    expected = kernel_counts(flash_attention=2 * len(reqs) * cfg.n_layers,
+                             decode_attention=2 * len(reqs) * cfg.n_layers * tb)
     engines, results, launches = serve_and_count(cfg, reqs, args, card_str, expected, "7a")
     # 7b. captured against eager
     rows = captured_vs_eager(engines["baseline"], reqs, results["baseline"], ph="7b")
@@ -1342,9 +1421,9 @@ def pipeline_phase(args, card_str, n_items=8):
     asr, llm = cfgs["asr"], cfgs["llm"]
     tb_asr, tb_llm = _bucket(spec.transcript_tokens, base=8), _bucket(spec.answer_tokens, base=8)
     items = len(PIPELINE_ARMS) * n_items
-    expected = {"matmul": 0,
-                "flash_attention": items * (asr.n_encoder_layers + llm.n_layers),
-                "decode_attention": items * (2 * asr.n_layers * tb_asr + llm.n_layers * tb_llm)}
+    expected = kernel_counts(
+        flash_attention=items * (asr.n_encoder_layers + llm.n_layers),
+        decode_attention=items * (2 * asr.n_layers * tb_asr + llm.n_layers * tb_llm))
     if launches != expected or max(plain.values()) != 0:
         raise PhaseError(f"pipeline launches {launches}, plain {plain}; expected {expected} "
                          f"launches and no plain call")
@@ -1374,8 +1453,8 @@ def encdec_phase(args, card_str):
     tb = _bucket(args.new_tokens, base=8)
     # 8a. serving, both arms: one K2 launch an encoder layer a request, two
     # K3 launches (self and cross) a decoder layer a decode step
-    expected = {"matmul": 0, "flash_attention": 2 * len(reqs) * cfg.n_encoder_layers,
-                "decode_attention": 2 * len(reqs) * 2 * cfg.n_layers * tb}
+    expected = kernel_counts(flash_attention=2 * len(reqs) * cfg.n_encoder_layers,
+                             decode_attention=2 * len(reqs) * 2 * cfg.n_layers * tb)
     engines, results, launches = serve_and_count(cfg, reqs, args, card_str, expected, "8a")
     # 8b. captured against eager
     rows = captured_vs_eager(engines["baseline"], reqs, results["baseline"], ph="8b")
@@ -1915,9 +1994,10 @@ def recurrent_bounds(cfg, params, state_bytes) -> float:
 def zamba_phase(args, card_str):
     """10a/10c-d for zamba2-1.2b: served in both arms on the captured path
     (K2 once an application of the shared block a request, K3 once an
-    application a decode step), captured against eager, the f32 and bf16
-    kernel paths against the plain path, then times. Returns the served
-    path's kernels-line entries."""
+    application a decode step, the SSD kernel once a Mamba2 layer a
+    request), captured against eager, the f32 and bf16 kernel paths against
+    the plain path, then times. Returns the served path's kernels-line
+    entries."""
     from repro_torch.configs.registry import get_config
     from repro_torch.serving.backend import ServeRequest, _bucket
 
@@ -1927,11 +2007,16 @@ def zamba_phase(args, card_str):
     longest = max(reqs, key=lambda r: len(r.prompt))
     S, tb = len(longest.prompt), _bucket(args.new_tokens, base=8)
     n_attn = cfg.n_layers // cfg.hybrid_attn_every
-    expected = {"matmul": 0, "flash_attention": 2 * len(reqs) * n_attn,
-                "decode_attention": 2 * len(reqs) * n_attn * tb}
+    expected = kernel_counts(flash_attention=2 * len(reqs) * n_attn,
+                             decode_attention=2 * len(reqs) * n_attn * tb,
+                             ssd_chunked=2 * len(reqs) * cfg.n_layers)  # once a layer a prefill
     engines, results, launches = serve_and_count(cfg, reqs, args, card_str, expected, "10a")
     rows = captured_vs_eager(engines["baseline"], reqs, results["baseline"], ph="10a")
-    f32_kernel_vs_plain(cfg, prompt_of(reqs[0]), args.new_tokens, args.seed, ph="10a")
+    # f32 over three SSD chunks, the last ragged, so the state carried between
+    # chunks reaches the logits (the served prompts fit one chunk)
+    long = np.random.RandomState(args.seed).randint(0, cfg.vocab, size=2 * cfg.ssm.chunk + 88)
+    f32_kernel_vs_plain(cfg, torch.tensor(long, dtype=torch.int32, device=DEVICE)[None],
+                        args.new_tokens, args.seed, ph="10a")
     be = engines["baseline"].backend
     bf16_kernel_vs_plain(be.model, be.params, prompt_of(longest), ph="10a")
     # 10d. times
@@ -1944,11 +2029,16 @@ def zamba_phase(args, card_str):
     time_requests(engines, reqs, rows, card_str, ph="10d")
     graph_memory(engines, card_str, ph="10d")
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ssd_heads = cfg.ssm.expand * cfg.d_model // cfg.ssm.d_state  # SSD heads of d_state
     cache_len = _bucket(S + tb, base=8)
     kernels = report_rows(
         [("flash_attention", flash_row((1, H, K, S, hd), window=cfg.sliding_window)),
-         ("decode_attention", decode_row((1, H, K, cache_len, hd), S + tb // 2))],
+         ("decode_attention", decode_row((1, H, K, cache_len, hd), S + tb // 2)),
+         ("ssd_chunked", ssd_row(2048, ssd_heads, cfg.ssm.d_state, cfg.ssm.chunk))],
         launches, card_str, "10d", suffix=f"[{ZAMBA}]")
+    # the SSD kernel at the longest prompt of the documents' traffic
+    report_rows([("ssd_chunked", ssd_row(3840, ssd_heads, cfg.ssm.d_state, cfg.ssm.chunk))],
+                None, card_str, "10d", suffix="[S 3840]")
     # K2 where the window masks: a 1,024-token prompt, window 256
     report_rows([("flash_attention", flash_row((1, H, K, 1024, hd), window=256))],
                 None, card_str, "10d", suffix="[window 256]")
@@ -2007,7 +2097,7 @@ def xlstm_phase(args, card_str):
     t0 = time.perf_counter()
     cfg = get_config(XLSTM)
     reqs = make_requests(cfg, args.requests, args.new_tokens, args.seed, ServeRequest)
-    expected = {"matmul": 0, "flash_attention": 0, "decode_attention": 0}
+    expected = kernel_counts()
     engines, results, _ = serve_and_count(cfg, reqs, args, card_str, expected, "10b")
     be = engines["baseline"].backend
     if list(be.model.graphs.caches) != [(1, None)]:
@@ -2156,9 +2246,9 @@ def bf16_train_step(cfg, batch, seed, tag):
     torch.cuda.synchronize()
     counts = {"launches": dict(_build.launches), "backward": dict(_build.backward),
               "plain": dict(_build.plain)}
-    expected = {"launches": {"matmul": 0, "flash_attention": 2 * L, "decode_attention": 0},
-                "backward": {"matmul": 0, "flash_attention": L, "decode_attention": 0},
-                "plain": {"matmul": 0, "flash_attention": 0, "decode_attention": 0}}
+    expected = {"launches": kernel_counts(flash_attention=2 * L),
+                "backward": kernel_counts(flash_attention=L),
+                "plain": kernel_counts()}
     if counts != expected:
         raise PhaseError(f"{tag}: counts {counts}; expected {expected}")
     ploss, _, pgrads = loss_and_grads(build_model(cfg, use_kernels=False), params, batch)
@@ -2386,11 +2476,9 @@ def train_phase(args, card_str):
     counts = {"launches": dict(ops.launches), "backward": dict(ops.backward),
               "plain": dict(ops.plain)}
     peak = torch.cuda.max_memory_allocated()
-    expected = {"launches": {"matmul": 0, "flash_attention": TRAIN_STEPS * 2 * L,
-                             "decode_attention": 0},
-                "backward": {"matmul": 0, "flash_attention": TRAIN_STEPS * L,
-                             "decode_attention": 0},
-                "plain": {"matmul": 0, "flash_attention": 0, "decode_attention": 0}}
+    expected = {"launches": kernel_counts(flash_attention=TRAIN_STEPS * 2 * L),
+                "backward": kernel_counts(flash_attention=TRAIN_STEPS * L),
+                "plain": kernel_counts()}
     print(json.dumps({"train_counters": counts}))
     print(f"[11a] {TRAIN_ARCH} full width and depth ({L} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab {cfg.vocab}, tied; "
@@ -2458,9 +2546,9 @@ def train_phase(args, card_str):
     cfg32 = dataclasses.replace(cfg, n_layers=PLAIN_LAYERS, dtype="float32")
     kernel_vs_plain_step(
         cfg32, train_batch(cfg32, PLAIN_BATCH, PLAIN_SEQ, args.seed), args.seed,
-        {"launches": {"matmul": 0, "flash_attention": 2 * PLAIN_LAYERS, "decode_attention": 0},
-         "backward": {"matmul": 0, "flash_attention": PLAIN_LAYERS, "decode_attention": 0},
-         "plain": {"matmul": 0, "flash_attention": 0, "decode_attention": 0}},
+        {"launches": kernel_counts(flash_attention=2 * PLAIN_LAYERS),
+         "backward": kernel_counts(flash_attention=PLAIN_LAYERS),
+         "plain": kernel_counts()},
         "11b", f"{TRAIN_ARCH} full width, {PLAIN_LAYERS} layers, batch {PLAIN_BATCH} x {PLAIN_SEQ}")
     cfg16 = dataclasses.replace(cfg, n_layers=BF16_TRAIN_LAYERS)
     bf16_train_step(cfg16, train_batch(cfg16, TRAIN_BATCH, TRAIN_SEQ, args.seed), args.seed,
@@ -2496,9 +2584,11 @@ def train_phase(args, card_str):
             fwd = bwd = c.n_layers // c.hybrid_attn_every
         else:
             fwd, bwd = 2 * c.n_layers, c.n_layers
-        expected = {"launches": {"matmul": 0, "flash_attention": fwd, "decode_attention": 0},
-                    "backward": {"matmul": 0, "flash_attention": bwd, "decode_attention": 0},
-                    "plain": {"matmul": 0, "flash_attention": 0, "decode_attention": 0}}
+        # under autograd the SSD scan is the plain one: each Mamba2 block and its recompute
+        ssd = 2 * c.n_layers if c.family == "hybrid" else 0
+        expected = {"launches": kernel_counts(flash_attention=fwd),
+                    "backward": kernel_counts(flash_attention=bwd),
+                    "plain": kernel_counts(ssd_chunked=ssd)}
         shares = kernel_vs_plain_step(c, batch, args.seed, expected, "11d", tag)
         if c.family == "hybrid":
             rounding_readings(c, batch_n, seq, args.seed, expected, tag, shares)
@@ -2773,8 +2863,8 @@ def sharded_serving_phase(args, card_str, ServeRequest):
                       "collectives": dict(sh.comm_counts)}
             print(json.dumps({"counters": {"path": "sharded llama3.2-1b", **counts}}))
             n = len(reqs)
-            expected = {"launches": {"matmul": 0, "flash_attention": L * n, "decode_attention": 0},
-                        "plain": {k: 0 for k in _build.KERNELS},
+            expected = {"launches": kernel_counts(flash_attention=L * n),
+                        "plain": kernel_counts(),
                         "form_launches": {"decode_attention_lse": L * steps * n},
                         "collectives": 0}
             if (counts["launches"] != expected["launches"] or counts["plain"] != expected["plain"]
@@ -2886,8 +2976,8 @@ def captured_sharded(model, params, reqs, steps, rows, want, want_graph, run_cap
     new = {k: v - before[k] for k, v in model.graph_stats.items()}
     same = all(torch.equal(a, b) for a, b in zip(got, want_graph))
     eager_same = sum(torch.equal(a[:, :steps], b[0]) for a, b in zip(want_graph, want))
-    expected = {"launches": {"matmul": 0, "flash_attention": L * n, "decode_attention": 0},
-                "plain": {k: 0 for k in _build.KERNELS},
+    expected = {"launches": kernel_counts(flash_attention=L * n),
+                "plain": kernel_counts(),
                 "form_launches": {"decode_attention_lse": L * steps * n},
                 "form_plain": {"decode_attention_lse": 0}}
     print(f"[12f] llama3.2-1b full width ({L} layers, bf16) on the (1, 1) mesh, DECODE_ATTN_MODE "
@@ -3156,10 +3246,12 @@ def placed_recurrent(arch, args, card_str, mesh, ServeRequest):
     want, wall_plain, base = counted(lambda: [run_captured(r, model.static_cache(1, rows))
                                               for r in reqs])
     # zamba2: K2 once an application of the shared block a request, K3 once
-    # an application a decode step; xlstm: no kernel
+    # an application a decode step, the SSD kernel once a Mamba2 layer a
+    # request; xlstm: no kernel
     n_attn = cfg.n_layers // cfg.hybrid_attn_every if cfg.hybrid_attn_every else 0
-    expected = {"matmul": 0, "flash_attention": n_attn * len(reqs),
-                "decode_attention": n_attn * len(reqs) * steps}
+    expected = kernel_counts(flash_attention=n_attn * len(reqs),
+                             decode_attention=n_attn * len(reqs) * steps,
+                             ssd_chunked=cfg.n_layers * len(reqs) if n_attn else 0)
     if base["launches"] != expected or sum(base["plain"].values()):
         raise PhaseError(f"{arch}: unsharded captured counts {base}; expected {expected}")
     decode_before = [k for k in model.graphs.graphs if k[0] == "decode"]
@@ -3342,9 +3434,8 @@ def main() -> int:
     print(json.dumps({"counters": {"launches": launches, "plain": plain}}))
     # the probe's repeats; per request and arm, one K2 launch a layer and one
     # K3 launch a layer a decode step (the bucket's steps)
-    expected = {"matmul": probe.repeats,
-                "flash_attention": 2 * len(reqs) * cfg.n_layers,
-                "decode_attention": 2 * len(reqs) * cfg.n_layers * tb}
+    expected = kernel_counts(matmul=probe.repeats, flash_attention=2 * len(reqs) * cfg.n_layers,
+                             decode_attention=2 * len(reqs) * cfg.n_layers * tb)
     if launches != expected or max(plain.values()) != 0:
         raise PhaseError(f"main path launches {launches}, plain {plain}; expected {expected} "
                          f"launches and no plain call")

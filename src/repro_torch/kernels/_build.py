@@ -40,16 +40,18 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ("matmul", "flash_attention", "decode_attention")
+KERNELS = ("matmul", "flash_attention", "decode_attention", "ssd_chunked")
 SOURCES = {
     "matmul": "matmul_probe.cu",
     "flash_attention": "flash_attention.cu",
     "decode_attention": "decode_attention.cu",
+    "ssd_chunked": "ssd_chunk.cu",
 }
-# dtype codes of the C interface, and the head dims the attention kernels
-# are instantiated for
+# dtype codes of the C interface, the head dims the attention kernels are
+# instantiated for, and the d_state (= head dim) of the SSD kernel
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 96, 128)
+STATE_DIMS = (16, 64)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -59,9 +61,19 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 
 FORMS = ("decode_attention_lse",)
 
-launches: dict[str, int] = {name: 0 for name in KERNELS}
-plain: dict[str, int] = {name: 0 for name in KERNELS}
-backward: dict[str, int] = {name: 0 for name in KERNELS}
+
+def counts(**given: int) -> dict[str, int]:
+    """A dict of every kernel's count: ``given``'s, 0 for the others (the
+    form of ``launches``, ``plain`` and ``backward``)."""
+    unknown = set(given) - set(KERNELS)
+    if unknown:
+        raise KeyError(f"no kernel {sorted(unknown)}; the kernels are {KERNELS}")
+    return {**dict.fromkeys(KERNELS, 0), **given}
+
+
+launches: dict[str, int] = counts()
+plain: dict[str, int] = counts()
+backward: dict[str, int] = counts()
 form_launches: dict[str, int] = {name: 0 for name in FORMS}
 form_plain: dict[str, int] = {name: 0 for name in FORMS}
 
@@ -174,6 +186,11 @@ _SIGNATURES = {
     "decode_attention": (
         "repro_decode_attention",
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    ),
+    "ssd_chunked": (
+        "repro_ssd_chunked",
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 7
+        + [ctypes.c_int, ctypes.c_void_p],
     ),
 }
 

@@ -1,4 +1,4 @@
-"""Dispatcher for the three kernels.
+"""Dispatcher for the four kernels.
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the kernel's
 plain PyTorch version. ``use_kernel=False`` asks for the plain version on
@@ -17,7 +17,9 @@ the kernel's forward, the plain version's gradient. Without a gradient the
 kernel is called as it is, so serving and CUDA-graph capture launch the same.
 Nothing trains through the matmul and decode-attention kernels; asked for a
 gradient on the card, they raise rather than return an output that autograd
-would treat as a constant.
+would treat as a constant. The SSD scan has no backward kernel either: under
+autograd it runs its plain version on the card too (zamba2's training),
+counted in ``plain``.
 """
 from __future__ import annotations
 
@@ -25,11 +27,13 @@ from typing import Optional
 
 import torch
 
+from ..models.ssm import ssd_chunked as _plain_ssd_chunked
 from . import _build, ref
 from . import decode_attention as _k3
 from . import flash_attention as _k2
 from .decode_attention import decode_attention as _decode_attention
 from .matmul_probe import matmul as _matmul
+from .ssd_chunk import ssd_chunked as _ssd_chunked
 
 launches = _build.launches
 plain = _build.plain
@@ -37,6 +41,7 @@ backward = _build.backward
 form_launches = _build.form_launches
 form_plain = _build.form_plain
 reset_counters = _build.reset_counters
+counts = _build.counts
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -110,3 +115,25 @@ def decode_attention(
         plain["decode_attention"] += 1
     return ref.decode_attention_ref(q, k_cache, v_cache, lengths, sm_scale=sm_scale,
                                     return_lse=return_lse)
+
+
+def ssd_chunked(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    D: torch.Tensor,
+    *,
+    chunk: int,
+    h0: Optional[torch.Tensor] = None,
+    use_kernel: bool = True,
+):
+    """Mamba2's chunked SSD scan: (y (B, S, H, P) in x's dtype, h_final (B,
+    H, N, P) f32). The kernel on the card without a gradient; the plain scan
+    (``models/ssm.py``) on the CPU, with ``use_kernel=False`` or under autograd."""
+    tensors = (x, dt, A, Bm, Cm, D) + (() if h0 is None else (h0,))
+    if use_kernel and _on_card(x) and not _wants_grad(*tensors):
+        return _ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk, h0=h0)
+    plain["ssd_chunked"] += 1
+    return _plain_ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk, h0=h0)

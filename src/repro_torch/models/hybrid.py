@@ -11,13 +11,15 @@ the model sub-quadratic for long contexts.
 On the card the shared block's prefill runs the flash-attention kernel
 (causal, with the window) and each of its decode steps the decode-attention
 kernel over a ring of ``min(max_len, window)`` rows: one launch of each an
-application. The Mamba2 blocks compute in plain PyTorch ops
-(:mod:`repro_torch.models.ssm`). The cache is a flat dict of tensors, written
-in place: ``h`` (layers, B, H, N, P) f32 SSD states, ``conv`` (layers, B,
-d_conv - 1, conv_dim) the causal conv's last inputs, ``attn_k``/``attn_v``
-(applications, B, K, rows, hd) and ``lengths``. Prefill starts every layer
-from a zero state, as ``repro``'s does (it reads no state from the cache),
-so a reused cache holds nothing of an earlier request that decode reads.
+application. Each Mamba2 block's prefill runs the SSD kernel
+(``ops.ssd_chunked``, one call a layer; the plain scan under autograd); its
+decode step computes in plain PyTorch ops (:mod:`repro_torch.models.ssm`).
+The cache is a flat dict of tensors, written in place: ``h`` (layers, B, H,
+N, P) f32 SSD states, ``conv`` (layers, B, d_conv - 1, conv_dim) the causal
+conv's last inputs, ``attn_k``/``attn_v`` (applications, B, K, rows, hd) and
+``lengths``. Prefill starts every layer from a zero state, as ``repro``'s
+does (it reads no state from the cache), so a reused cache holds nothing of
+an earlier request that decode reads.
 
 In training (:func:`loss_fn`) ``remat`` recomputes each Mamba2 block in the
 backward and keeps the shared block's activations, as ``repro`` wraps only
@@ -55,10 +57,11 @@ from .. import trace
 from ..configs.base import ArchConfig
 from ..distributed import sharding as sh
 from ..distributed.sharding import shard
+from ..kernels import ops
 from .attention import Attention, decode_attention_step, prefill_attention, store_prefill_kv
 from .layers import (SwiGLU, cross_entropy, embed, normal_init, parameter, remat as _remat,
                      rms_norm, rms_norm_split, unembed, unembed_input)
-from .ssm import softplus, ssd_chunked, ssd_step
+from .ssm import softplus, ssd_step
 
 
 def _dims(cfg: ArchConfig):
@@ -227,13 +230,14 @@ def _mamba_proj(cfg: ArchConfig, p: MambaBlock, x):
     return torch.split(u, [d_inner, d_inner, N, N, H], dim=-1)  # xs, z, Bm, Cm, dt
 
 
-def mamba_block(cfg: ArchConfig, p: MambaBlock, x):
+def mamba_block(cfg: ArchConfig, p: MambaBlock, x, use_kernel: bool = True):
     """x: (B,S,d), from a zero state. Returns (y, (h (B,H,N,P), conv ctx)),
     the state of the rank's heads and channels on a split block."""
     d_inner, H, P, N = _dims(cfg)
     B, S, _ = x.shape
     xs, z, Bm, Cm, dt, A, D, new_ctx = _mamba_mix(cfg, p, x, None)
-    y, h = ssd_chunked(xs.reshape(B, S, -1, P), dt, A, Bm, Cm, D, chunk=cfg.ssm.chunk)
+    y, h = ops.ssd_chunked(xs.reshape(B, S, -1, P), dt, A, Bm, Cm, D, chunk=cfg.ssm.chunk,
+                           use_kernel=use_kernel)
     return _mamba_out(cfg, p, x, y.reshape(B, S, -1), z), (h, new_ctx)
 
 
@@ -309,7 +313,7 @@ def forward(cfg: ArchConfig, params: Zamba2, tokens: torch.Tensor, *, remat: boo
 
                 def body(x, p=params.mamba[li]):
                     with sh.gathered(p):
-                        return mamba_block(cfg, p, x)[0]
+                        return mamba_block(cfg, p, x, use_kernel)[0]
 
                 x = _remat(body, x) if remat else body(x)
             if attn:
@@ -368,7 +372,7 @@ def prefill(cfg: ArchConfig, params: Zamba2, tokens: torch.Tensor, cache, *,
     for gi, layers, attn in _groups(cfg):
         for li in layers:
             with trace.scope("mamba2"):
-                x, (h, ctx) = mamba_block(cfg, params.mamba[li], x)
+                x, (h, ctx) = mamba_block(cfg, params.mamba[li], x, use_kernel)
                 cache["h"][li].copy_(h)
                 cache["conv"][li].copy_(ctx)
         if attn:

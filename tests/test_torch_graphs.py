@@ -139,17 +139,17 @@ def test_recording_restores_counters_and_replays_count_what_was_recorded():
         _build.plain["matmul"] += 1
         _build.form_launches["decode_attention_lse"] += 4  # K3's log-sum-exp form
     assert recorded == {
-        "launches": {"matmul": 0, "flash_attention": 2, "decode_attention": 16},
-        "plain": {"matmul": 1, "flash_attention": 0, "decode_attention": 0},
+        "launches": _build.counts(flash_attention=2, decode_attention=16),
+        "plain": _build.counts(matmul=1),
         "form_launches": {"decode_attention_lse": 4},
         "form_plain": {"decode_attention_lse": 0},
     }
-    assert _build.launches == {"matmul": 5, "flash_attention": 0, "decode_attention": 0}
+    assert _build.launches == _build.counts(matmul=5)
     assert sum(_build.plain.values()) == 0 and sum(_build.form_launches.values()) == 0
     for _ in range(3):
         _build.replayed(recorded)
-    assert _build.launches == {"matmul": 5, "flash_attention": 6, "decode_attention": 48}
-    assert _build.plain == {"matmul": 3, "flash_attention": 0, "decode_attention": 0}
+    assert _build.launches == _build.counts(matmul=5, flash_attention=6, decode_attention=48)
+    assert _build.plain == _build.counts(matmul=3)
     assert _build.form_launches == {"decode_attention_lse": 12}
     _build.reset_counters()
 

@@ -104,7 +104,7 @@ def test_moe_captured_path_matches_eager_loop(arch):
     logits, _ = m.prefill_jit(params, {"tokens": prompt}, cache)
     toks, _ = m.decode_tokens(params, cache, prompt[:, -1:], T)
     torch.cuda.synchronize()
-    assert _build.launches == {"matmul": 0, "flash_attention": L, "decode_attention": L * T}
+    assert _build.launches == _build.counts(flash_attention=L, decode_attention=L * T)
     assert sum(_build.plain.values()) == 0
     want_logits, want_toks, want = _eager(m, params, prompt, cache_len, T)
     assert m.graph_stats == {"captures": 2, "replays": 2, "dropped": 0}
@@ -133,7 +133,7 @@ def test_whisper_captured_path_matches_eager_and_counts_replays():
         toks, _ = m.decode_tokens(params, cache, tok, T)
         torch.cuda.synchronize()
         assert out is None
-        assert _build.launches == {"matmul": 0, "flash_attention": E, "decode_attention": 2 * L * T}
+        assert _build.launches == _build.counts(flash_attention=E, decode_attention=2 * L * T)
         assert sum(_build.plain.values()) == 0
         want = m.init_cache(1, cache_len)
         m.prefill(params, {"frames": frames}, want)
@@ -187,8 +187,9 @@ def test_recurrent_captured_path_matches_eager_loop(arch, dtype):
     toks, _ = m.decode_tokens(params, cache, prompt[:, -1:], T)
     torch.cuda.synchronize()
     n_attn = cfg.n_layers // cfg.hybrid_attn_every if arch == "zamba2-1.2b" else 0
-    assert _build.launches == {"matmul": 0, "flash_attention": n_attn,
-                               "decode_attention": n_attn * T}
+    n_ssd = cfg.n_layers if arch == "zamba2-1.2b" else 0  # one SSD call a Mamba2 layer
+    assert _build.launches == _build.counts(flash_attention=n_attn, decode_attention=n_attn * T,
+                                            ssd_chunked=n_ssd)
     assert sum(_build.plain.values()) == 0
     want_logits, want_toks, want = _eager(m, params, prompt, cache_len, T)
     assert m.graph_stats == {"captures": 2, "replays": 2, "dropped": 0}
@@ -237,8 +238,7 @@ def test_launch_counts_are_replays_times_what_was_captured():
     for n in range(1, 4):
         m.prefill_jit(params, {"tokens": prompt}, cache)
         m.decode_tokens(params, cache, prompt[:, -1:], T)
-        assert _build.launches == {"matmul": 0, "flash_attention": n * L,
-                                   "decode_attention": n * L * T}
+        assert _build.launches == _build.counts(flash_attention=n * L, decode_attention=n * L * T)
     assert sum(_build.plain.values()) == 0
     recorded = m.graphs.graphs[("decode", 1, 32, T)].recorded
     assert recorded["launches"]["decode_attention"] == L * T
@@ -395,8 +395,7 @@ def test_captured_sharded_decode_equals_the_unsharded_one():
             sh.reset_comm_counters()
             got = serve(cache)
             assert _build.form_launches["decode_attention_lse"] == len(prompts) * L * T
-            assert _build.launches == {"matmul": 0, "flash_attention": len(prompts) * L,
-                                       "decode_attention": 0}
+            assert _build.launches == _build.counts(flash_attention=len(prompts) * L)
             assert sum(_build.plain.values()) == sum(_build.form_plain.values()) == 0
             assert sum(sh.comm_counts.values()) == 0
     finally:

@@ -168,7 +168,8 @@ def test_model_on_cpu_goes_through_the_plain_attention(pair):
     tm.prefill(tp, {"tokens": torch.arange(5, dtype=torch.int32)[None]}, cache)
     tm.decode_tokens(tp, cache, torch.tensor([[4]], dtype=torch.int32), 3)
     n = thybrid._n_attn(tm.cfg)
-    assert ops.plain == {"matmul": 0, "flash_attention": n, "decode_attention": 3 * n}
+    assert ops.plain == ops.counts(flash_attention=n, decode_attention=3 * n,
+                                   ssd_chunked=tm.cfg.n_layers)
     assert sum(ops.launches.values()) == 0
     ops.reset_counters()
 

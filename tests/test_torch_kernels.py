@@ -288,8 +288,11 @@ def test_dispatcher_on_cpu_counts_plain_calls_and_no_launches():
     ops.matmul(a, a, use_kernel=False)
     ops.flash_attention(q, q, q)
     ops.decode_attention(q[:, :, :1], q, q, torch.tensor([2], dtype=torch.int32))
-    assert ops.plain == {"matmul": 2, "flash_attention": 1, "decode_attention": 1}
-    assert ops.launches == {"matmul": 0, "flash_attention": 0, "decode_attention": 0}
+    ssd = _ssd_args(1, 6, 2, 16, 0)
+    ops.ssd_chunked(*ssd, chunk=4)
+    ops.ssd_chunked(*ssd, chunk=4, use_kernel=False)
+    assert ops.plain == ops.counts(matmul=2, flash_attention=1, decode_attention=1, ssd_chunked=2)
+    assert ops.launches == ops.counts()
     ops.reset_counters()
     assert sum(ops.plain.values()) == 0
 
@@ -299,15 +302,122 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.matmul_probe import matmul
+    from repro_torch.kernels.ssd_chunk import ssd_chunked
 
     a = torch.ones(4, 4)
     q = torch.ones(1, 2, 4, 64)
     with pytest.raises(ValueError, match="CUDA"):
         matmul(a, a)
     with pytest.raises(ValueError, match="CUDA"):
+        ssd_chunked(*_ssd_args(1, 6, 2, 16, 0), chunk=4)
+    with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention(q[:, :, :1], q, q, torch.tensor([1], dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan's route: the kernel on the card without a gradient, the plain
+# scan (models/ssm.py) otherwise
+# ---------------------------------------------------------------------------
+
+
+def _ssd_args(B, S, H, N, seed, grad=False):
+    """x (B, S, H, N), dt, A, Bm, Cm, D as zamba2's block hands them over."""
+    rs = np.random.RandomState(seed)
+    x = torch.tensor(rs.randn(B, S, H, N).astype(np.float32), requires_grad=grad)
+    dt = torch.nn.functional.softplus(torch.tensor(rs.randn(B, S, H).astype(np.float32)))
+    A = -torch.linspace(1.0, 16.0, H)
+    Bm, Cm = (torch.tensor(rs.randn(B, S, N).astype(np.float32)) for _ in range(2))
+    return x, dt, A, Bm, Cm, torch.ones(H)
+
+
+def test_ssd_dispatch_on_cpu_is_the_plain_scan():
+    from repro_torch.models.ssm import ssd_chunked
+
+    args = _ssd_args(2, 37, 3, 16, 1)
+    h0 = torch.tensor(_np((2, 3, 16, 16), 2))
+    ops.reset_counters()
+    for kw in ({}, {"h0": h0}):
+        got, want = ops.ssd_chunked(*args, chunk=16, **kw), ssd_chunked(*args, chunk=16, **kw)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert ops.plain["ssd_chunked"] == 2 and ops.launches["ssd_chunked"] == 0
+    ops.reset_counters()
+
+
+def test_ssd_dispatch_on_the_card_route_launches_only_without_a_gradient(monkeypatch):
+    """With ``_on_card`` patched, a call without a gradient goes to the
+    kernel's launcher (patched to count); ``use_kernel=False``, and any
+    input that requires grad under grad mode (zamba2's training), to the
+    plain scan, which autograd can differentiate."""
+    from repro_torch.kernels import _build
+
+    calls = []
+
+    def launcher(*args, chunk, h0=None):
+        calls.append(chunk)
+        _build.check("ssd_chunked", 0)
+        return args[0], None
+
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
+    monkeypatch.setattr(ops, "_ssd_chunked", launcher)
+    ops.reset_counters()
+    args = _ssd_args(1, 10, 2, 16, 3)
+    ops.ssd_chunked(*args, chunk=4)
+    ops.ssd_chunked(*_ssd_args(1, 10, 2, 16, 3, grad=True), chunk=4, h0=None)
+    with torch.no_grad():  # grad mode off: the kernel, whatever requires grad
+        ops.ssd_chunked(*_ssd_args(1, 10, 2, 16, 3, grad=True), chunk=4)
+    ops.ssd_chunked(*args, chunk=4, use_kernel=False)
+    h0 = torch.zeros(1, 2, 16, 16, requires_grad=True)
+    y, h = ops.ssd_chunked(*args, chunk=4, h0=h0)
+    assert calls == [4, 4]
+    assert ops.launches["ssd_chunked"] == 2 and ops.plain["ssd_chunked"] == 3
+    h.sum().backward()
+    assert h0.grad is not None
+    ops.reset_counters()
+
+
+def test_ssd_kernel_is_built_with_the_others_and_names_no_attention_kernel():
+    """``prepare_capture`` builds every entry of ``KERNELS``; the benchmark's
+    K2 and K3 rooflines (and the trace test) find attention kernels by
+    ``flash`` and ``decode_kernel`` in a kernel's name, so no SSD kernel may
+    carry either."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    assert "ssd_chunked" in _build.KERNELS and _build.SOURCES["ssd_chunked"] == "ssd_chunk.cu"
+    assert _build.STATE_DIMS == (16, 64)
+    src = (_build.CSRC / "ssd_chunk.cu").read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", src)
+    assert sorted(names) == ["ssd_out_kernel", "ssd_pass_kernel", "ssd_state_kernel"]
+    assert not any("flash" in n or "decode_kernel" in n for n in names)
+    assert _build._SIGNATURES["ssd_chunked"][0] in src
+
+
+def test_counts_names_every_kernel_and_refuses_others():
+    """Expected counter dicts are built by ``_build.counts``: every entry of
+    ``KERNELS``, 0 unless named, and a name that is no kernel raises."""
+    from repro_torch.kernels import _build
+
+    assert _build.counts() == dict.fromkeys(_build.KERNELS, 0) == ops.counts()
+    assert _build.counts(ssd_chunked=3) == {**dict.fromkeys(_build.KERNELS, 0), "ssd_chunked": 3}
+    assert _build.counts() is not _build.counts()
+    with pytest.raises(KeyError, match="ssd"):
+        _build.counts(ssd=1)
+
+
+def test_ssd_kernel_reads_the_conv_outputs_slices_as_they_are():
+    """The conv output's slices meet the kernel's vector loads as views; a
+    view whose rows do not start on 4-element groups does not (the wrapper
+    refuses it)."""
+    from repro_torch.kernels.ssd_chunk import vector_rows
+
+    packed = torch.zeros(2, 40, 4 * 16 + 2 * 16)
+    xs, Bm = packed[..., :64].reshape(2, 40, 4, 16), packed[..., 64:80]
+    assert vector_rows(xs) and vector_rows(Bm)
+    assert not vector_rows(torch.zeros(2, 40, 83)[..., 1:81])
+    assert not vector_rows(torch.zeros(2, 40, 16).transpose(1, 2))
 
 
 # ---------------------------------------------------------------------------

@@ -137,7 +137,7 @@ def test_model_on_cpu_goes_through_the_plain_versions(pair):
     tm.prefill(tp, {"tokens": torch.arange(5, dtype=torch.int32)[None]}, cache)
     tm.decode_tokens(tp, cache, torch.tensor([[4]], dtype=torch.int32), 3)
     n = tm.cfg.n_layers
-    assert ops.plain == {"matmul": 0, "flash_attention": n, "decode_attention": 3 * n}
+    assert ops.plain == ops.counts(flash_attention=n, decode_attention=3 * n)
     assert sum(ops.launches.values()) == 0
     ops.reset_counters()
 

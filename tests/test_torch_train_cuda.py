@@ -181,6 +181,6 @@ def test_serving_after_training_launches_as_before():
         counts.append((dict(_build.launches), dict(_build.plain), dict(_build.backward)))
     assert counts[0] == counts[1]
     launches, plain, backward = counts[0]
-    assert launches == {"matmul": 0, "flash_attention": cfg.n_layers,
-                        "decode_attention": 8 * cfg.n_layers}
+    assert launches == _build.counts(flash_attention=cfg.n_layers,
+                                     decode_attention=8 * cfg.n_layers)
     assert sum(plain.values()) == 0 and sum(backward.values()) == 0
