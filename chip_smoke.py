@@ -802,9 +802,10 @@ def ssd_flops(B, S, H, N, P, L) -> int:
     return B * flops
 
 
-def ssd_row(S, H, N, chunk):
-    """The SSD kernel at zamba2's shape, x (1, S, H, N) bf16 with d_state N
-    and one group, its x, Bm and Cm slices of one packed (1, S, H N + 2 N)
+def ssd_row(S, H, N, chunk, P=None):
+    """The SSD kernel at zamba2's shape, x (1, S, H, P) bf16 with d_state N
+    (P = N unless given: granite-4.0-h's heads are 64 over a state of 128)
+    and one group, its x, Bm and Cm slices of one packed (1, S, H P + 2 N)
     tensor as the conv's output hands them over; ``dt`` the model's softplus
     of a projection, ``A`` its initial -linspace(1, 16, H). y and the final
     state are held against the plain scan in f32 (the same bf16 values
@@ -817,11 +818,12 @@ def ssd_row(S, H, N, chunk):
     from repro_torch.kernels.ssd_chunk import ssd_chunked
     from repro_torch.models.ssm import ssd_chunked as plain_scan
 
+    P = P or N
     gen = torch.Generator(device=DEVICE).manual_seed(S)
-    packed = torch.randn(1, S, H * N + 2 * N, generator=gen, device=DEVICE).to(torch.bfloat16)
+    packed = torch.randn(1, S, H * P + 2 * N, generator=gen, device=DEVICE).to(torch.bfloat16)
 
     def split(t):
-        return t[..., :H * N].reshape(1, S, H, N), t[..., H * N:H * N + N], t[..., H * N + N:]
+        return t[..., :H * P].reshape(1, S, H, P), t[..., H * P:H * P + N], t[..., H * P + N:]
     x16, B16, C16 = split(packed)
     x32, B32, C32 = split(packed.float())
     dt = F.softplus(torch.randn(1, S, H, generator=gen, device=DEVICE))
@@ -837,16 +839,16 @@ def ssd_row(S, H, N, chunk):
                               for a, b in ((y, want_y), (h, want_h))))
             abs_err = max(abs_err, max_err(y, want_y))
             same &= torch.equal(y16, y.to(torch.bfloat16)) and torch.equal(h16, h)
-    text = (f"x(1,{S},{H},{N}) bf16 strided, d_state {N}, chunk {chunk} "
+    text = (f"x(1,{S},{H},{P}) bf16 strided, d_state {N}, chunk {chunk} "
             f"({-(-S // chunk)} chunks)")
     print(f"[10d] ssd_chunked {text}: y, h within {errs[0][0]:.2e}, {errs[0][1]:.2e} of max "
           f"|want| (dt x 0.01: {errs[1][0]:.2e}, {errs[1][1]:.2e}; rule 1e-5); bf16 call the "
           f"f32 call rounded: {same}")
     if max(max(e) for e in errs) > 1e-5 or not same:
         raise PhaseError(f"ssd_chunked kernel disagrees with the plain scan at S {S}")
-    nbytes = (2 * (S * H * N + 2 * S * N) * packed.element_size()  # x, Bm, Cm read; y written
-              + 4 * (S * H + H * N * N + 2 * H))                    # dt, h_final, A, D
-    bms, by = bound(nbytes, ssd_flops(1, S, H, N, N, chunk), torch.float32)
+    nbytes = (2 * (S * H * P + 2 * S * N) * packed.element_size()  # x, Bm, Cm read; y written
+              + 4 * (S * H + H * N * P + 2 * H))                    # dt, h_final, A, D
+    bms, by = bound(nbytes, ssd_flops(1, S, H, N, P, chunk), torch.float32)
     return (text, abs_err,
             graph_ms(lambda: ssd_chunked(x16, dt, A, B16, C16, D, chunk=chunk)),
             graph_ms(lambda: plain_scan(x16, dt, A, B16, C16, D, chunk=chunk)), None, bms, by)
@@ -2042,6 +2044,11 @@ def zamba_phase(args, card_str):
     # K2 where the window masks: a 1,024-token prompt, window 256
     report_rows([("flash_attention", flash_row((1, H, K, 1024, hd), window=256))],
                 None, card_str, "10d", suffix="[window 256]")
+    # the SSD kernel at granite-4.0-h's shape (128 heads of 64, d_state 128,
+    # chunk 256), the documents' shortest and longest prompts
+    for S_g in (2048, 3840):
+        report_rows([("ssd_chunked", ssd_row(S_g, 128, 128, 256, P=64))],
+                    None, card_str, "10d", suffix=f"[granite-4.0-h S {S_g}]")
     del engines, results, be
     torch.cuda.empty_cache()
     print(f"[10] {ZAMBA} took {time.perf_counter() - t0:.1f} s")

@@ -27,12 +27,13 @@ class SSMConfig:
     d_conv: int = 4
     expand: int = 2
     chunk: int = 256             # chunked-scan block length
+    head_dim: int = 0            # Mamba2 head size P; 0 -> d_state
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     arch_id: str
-    family: str                  # dense | moe | xlstm | hybrid | encdec | vlm
+    family: str                  # dense | moe | xlstm | hybrid | hybrid_moe | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -56,6 +57,17 @@ class ArchConfig:
     encoder_frames: int = 1500   # stub conv frontend output length
     # sliding-window attention (enables long_500k for dense archs)
     sliding_window: Optional[int] = None
+    # hybrid_moe (granite-4.0-h): each layer's mixer ("mamba" | "attention"),
+    # every mixer followed by an MoE FFN; the first n_layers entries are used
+    layer_types: tuple[str, ...] = ()
+    # granite's multipliers, at values that add no operation: embeddings
+    # times embedding_multiplier, each residual branch times
+    # residual_multiplier, logits divided by logits_scaling, and the softmax
+    # scale attention_multiplier (0 -> 1/sqrt(head_dim))
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    logits_scaling: float = 1.0
     dtype: str = "bfloat16"
     # citation for the assigned config
     source: str = ""
@@ -63,6 +75,7 @@ class ArchConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -86,6 +99,18 @@ class ArchConfig:
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
         att = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
         per = att + 2 * d  # norms
+        if self.family == "hybrid_moe":
+            di = self.ssm.expand * d
+            N = self.ssm.d_state
+            H = di // (self.ssm.head_dim or N)
+            mamba = (d * (2 * di + 2 * N + H) + (self.ssm.d_conv + 1) * (di + 2 * N)
+                     + di * d + di + 3 * H)
+            ffn = (self.moe.n_experts + self.moe.n_shared) * 3 * d * self.moe.d_expert \
+                + d * self.moe.n_experts
+            kinds = self.layer_types[:self.n_layers]
+            n_attn = sum(k == "attention" for k in kinds)
+            return int(emb + d + n_attn * att + (len(kinds) - n_attn) * mamba
+                       + len(kinds) * (ffn + 2 * d))
         if self.moe is not None:
             routed = self.moe.n_experts * 3 * d * self.moe.d_expert
             shared = self.moe.n_shared * 3 * d * self.moe.d_expert

@@ -48,10 +48,10 @@ SOURCES = {
     "ssd_chunked": "ssd_chunk.cu",
 }
 # dtype codes of the C interface, the head dims the attention kernels are
-# instantiated for, and the d_state (= head dim) of the SSD kernel
+# instantiated for, and the (d_state, head dim) pairs of the SSD kernel
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 96, 128)
-STATE_DIMS = (16, 64)
+SSD_SHAPES = ((16, 16), (64, 64), (128, 64))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -189,7 +189,7 @@ _SIGNATURES = {
     ),
     "ssd_chunked": (
         "repro_ssd_chunked",
-        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 7
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 7
         + [ctypes.c_int, ctypes.c_void_p],
     ),
 }

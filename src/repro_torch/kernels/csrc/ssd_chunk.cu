@@ -22,7 +22,9 @@
 // a chunk needs about 0.54 GFLOP (the intra product with the causal half
 // skipped, 4.2 MFLOP a head; the inter product and the state, 2.1 each; C.B
 // once for all heads), against 2 x 2 MB of x and y: operations, at the 67
-// TFLOP/s of f32 FFMA, bound it, about 8 us a chunk.
+// TFLOP/s of f32 FFMA, bound it, about 8 us a chunk. At granite-4.0-h's
+// (H 128, N 128, P 64) a chunk needs about 1.6 GFLOP (intra 4.2 MFLOP a
+// head, inter and state 4.2 each), against 2 x 4 MB: about 24 us.
 //
 // Three launches a call, none of which writes an L x L x H tensor:
 //
@@ -45,6 +47,11 @@
 //   of a 64 x 64 tile are made from cb in shared memory, zero above the
 //   diagonal (the plain version's exp(-1e30)), and multiplied by the tile's
 //   x dt. Then D x is added and y is cast and stored.
+//
+// A state wider than 64 (N 128) is taken in blocks of 64 of its rows: the
+// chunk's own state one block after another, C.B and the inter product as
+// sums over the blocks of N in order, so that every operand tile stays 64 x
+// 64 and the sums run in the order of one pass over N.
 //
 // Every product is a 64-thread tile product on shared memory: an 8 x 8 grid
 // of threads, each holding an (M/8) x (W/8) block of the output in registers
@@ -242,10 +249,11 @@ template <typename X, int N, int P>
 __device__ __forceinline__ void chunk_state(const Params& p, int q, float* smem) {
   const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
   const int Lp = p.n_tiles * T;
-  float* As = smem;       // [T][N]: B_j w_j
+  float* As = smem;       // [T][NB]: B_j w_j, rows n0.. of the state
   float* Bs = As + TILE;  // [T][P]: x_j dt_j
   float* cs = Bs + TILE;  // [Lp]: csum, then w
   float* dts = cs + Lp;   // [Lp]
+  constexpr int NB = N < 64 ? N : 64;  // rows of the state a tile holds
   const Chunk k = chunk_of(p, q);
   const float* dt = p.dt + ((long long)k.b * p.seq + k.c0) * p.heads + k.h;
   for (int j = tid; j < Lp; j += THREADS) dts[j] = j < k.Lc ? dt[(long long)j * p.heads] : 0.f;
@@ -280,23 +288,26 @@ __device__ __forceinline__ void chunk_state(const Params& p, int q, float* smem)
   const X* Bm = static_cast<const X*>(p.Bm) + k.b * p.b_sb + (long long)k.c0 * p.b_ss;
   const X* x = static_cast<const X*>(p.x) + k.b * p.x_sb + (long long)k.c0 * p.x_ss +
                k.h * p.x_sh;
-  float acc[N / 8][P / 8] = {};
-  for (int t0 = 0; t0 < k.Lc; t0 += T) {
-    load_rows<X, N>(As, Bm, p.b_ss, t0, k.Lc, tid, [&](int j, int, float* v) {
-      const float w = cs[t0 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = __fmul_rn(v[i], w);
-    });
-    load_xdt<X, P>(Bs, x, p.x_ss, dts, t0, k.Lc, tid);
-    __syncthreads();
-    mma<N, P, T>(As, Bs, ty, tx, acc);
-    __syncthreads();
-  }
   float* out = p.states + (((long long)k.b * p.n_chunks + k.c) * p.heads + k.h) * N * P;
+  for (int n0 = 0; n0 < N; n0 += NB) {
+    float acc[NB / 8][P / 8] = {};
+    for (int t0 = 0; t0 < k.Lc; t0 += T) {
+      load_rows<X, NB>(As, Bm + n0, p.b_ss, t0, k.Lc, tid, [&](int j, int, float* v) {
+        const float w = cs[t0 + j];
 #pragma unroll
-  for (int i = 0; i < N / 8; ++i)
+        for (int i = 0; i < 4; ++i) v[i] = __fmul_rn(v[i], w);
+      });
+      load_xdt<X, P>(Bs, x, p.x_ss, dts, t0, k.Lc, tid);
+      __syncthreads();
+      mma<NB, P, T>(As, Bs, ty, tx, acc);
+      __syncthreads();
+    }
 #pragma unroll
-    for (int j = 0; j < P / 8; ++j) out[frag<N>(ty, i) * P + frag<P>(tx, j)] = acc[i][j];
+    for (int i = 0; i < NB / 8; ++i)
+#pragma unroll
+      for (int j = 0; j < P / 8; ++j)
+        out[(n0 + frag<NB>(ty, i)) * P + frag<P>(tx, j)] = acc[i][j];
+  }
 }
 
 // ssd_state_kernel's last blocks: one 64 x 64 tile of cb[j][i] = B_j . C_i
@@ -313,16 +324,20 @@ __device__ __forceinline__ void chunk_cb(const Params& p, int q, float* smem) {
     ++it;
   }
   const int jt = t;
+  constexpr int NB = N < 64 ? N : 64;  // rows of the state a tile holds
   const int c0 = c * p.L, Lc = min(p.L, p.seq - c0);
-  float* As = smem;       // [N][T]: B^T
-  float* Bs = As + TILE;  // [N][T]: C^T
-  load_transposed<X, N>(As, static_cast<const X*>(p.Bm) + b * p.b_sb + (long long)c0 * p.b_ss,
-                        p.b_ss, jt * T, Lc, tid);
-  load_transposed<X, N>(Bs, static_cast<const X*>(p.Cm) + b * p.c_sb + (long long)c0 * p.c_ss,
-                        p.c_ss, it * T, Lc, tid);
-  __syncthreads();
+  float* As = smem;       // [NB][T]: B^T, rows n0.. of N
+  float* Bs = As + TILE;  // [NB][T]: C^T
+  const X* Bm = static_cast<const X*>(p.Bm) + b * p.b_sb + (long long)c0 * p.b_ss;
+  const X* Cm = static_cast<const X*>(p.Cm) + b * p.c_sb + (long long)c0 * p.c_ss;
   float acc[8][8] = {};
-  mma<T, T, N>(As, Bs, ty, tx, acc);
+  for (int n0 = 0; n0 < N; n0 += NB) {
+    load_transposed<X, NB>(As, Bm + n0, p.b_ss, jt * T, Lc, tid);
+    load_transposed<X, NB>(Bs, Cm + n0, p.c_ss, it * T, Lc, tid);
+    __syncthreads();
+    mma<T, T, NB>(As, Bs, ty, tx, acc);
+    __syncthreads();
+  }
   float* out = p.cb + ((long long)b * p.n_chunks + c) * Lp * Lp + (long long)jt * T * Lp + it * T;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -389,8 +404,9 @@ __global__ void __launch_bounds__(THREADS) ssd_out_kernel(Params p) {
   const Chunk k = chunk_of(p, (int)blockIdx.x % per_tile);
   const int r0 = rt * T;
   if (r0 >= k.Lc) return;  // past a ragged last chunk's end
-  float* As = smem;       // [T][T] scores (j, i), or [N][T] C^T
-  float* Bs = As + TILE;  // [T][P] x dt, or [N][P] the chunk's starting state
+  constexpr int NB = N < 64 ? N : 64;  // rows of the state a tile holds
+  float* As = smem;       // [T][T] scores (j, i), or [NB][T] C^T (rows n0.. of N)
+  float* Bs = As + TILE;  // [T][P] x dt, or [NB][P] the chunk's starting state
   float* cs = Bs + TILE;  // [Lp]
   float* dts = cs + Lp;   // [Lp]
   const float* csum = p.csum + (((long long)k.b * p.heads + k.h) * p.n_chunks + k.c) * Lp;
@@ -401,17 +417,19 @@ __global__ void __launch_bounds__(THREADS) ssd_out_kernel(Params p) {
   }
   float acc[8][P / 8] = {};
   if (k.c > 0 || p.h0 != nullptr) {
-    // inter: (C_i . H_c) exp(csum_i)
-    load_transposed<X, N>(
-        As, static_cast<const X*>(p.Cm) + k.b * p.c_sb + (long long)k.c0 * p.c_ss, p.c_ss, r0,
-        k.Lc, tid);
+    // inter: (C_i . H_c) exp(csum_i), summed over N in blocks of NB
+    const X* Cm = static_cast<const X*>(p.Cm) + k.b * p.c_sb + (long long)k.c0 * p.c_ss;
     const float4* st = reinterpret_cast<const float4*>(
         p.starts + (((long long)k.b * p.n_chunks + k.c) * p.heads + k.h) * N * P);
+    for (int n0 = 0; n0 < N; n0 += NB) {
+      load_transposed<X, NB>(As, Cm + n0, p.c_ss, r0, k.Lc, tid);
 #pragma unroll
-    for (int r = 0; r < N * P / 4 / THREADS; ++r)
-      reinterpret_cast<float4*>(Bs)[tid + r * THREADS] = st[tid + r * THREADS];
-    __syncthreads();
-    mma<T, P, N>(As, Bs, ty, tx, acc);
+      for (int r = 0; r < NB * P / 4 / THREADS; ++r)
+        reinterpret_cast<float4*>(Bs)[tid + r * THREADS] = st[n0 * P / 4 + tid + r * THREADS];
+      __syncthreads();
+      mma<T, P, NB>(As, Bs, ty, tx, acc);
+      __syncthreads();
+    }
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float g = expf(cs[r0 + frag<T>(ty, i)]);
@@ -458,20 +476,20 @@ __global__ void __launch_bounds__(THREADS) ssd_out_kernel(Params p) {
   }
 }
 
-template <typename X, int N>
+template <typename X, int N, int P>
 int launch(const Params& p, cudaStream_t s) {
   // two operand tiles, csum and dt of the chunk: under 48 KB for L <= 2048
   const size_t smem = (2 * TILE + 2 * p.n_tiles * T) * sizeof(float);
   const int n_state = p.batch * p.n_chunks * p.heads;
   const int n_cb = p.batch * p.n_chunks * (p.n_tiles * (p.n_tiles + 1) / 2);
-  ssd_state_kernel<X, N, N><<<n_state + n_cb, THREADS, smem, s>>>(p);
+  ssd_state_kernel<X, N, P><<<n_state + n_cb, THREADS, smem, s>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long elems = (long long)p.batch * p.heads * N * N;
-  ssd_pass_kernel<N, N><<<(unsigned)((elems + 255) / 256), 256, 0, s>>>(p);
+  const long long elems = (long long)p.batch * p.heads * N * P;
+  ssd_pass_kernel<N, P><<<(unsigned)((elems + 255) / 256), 256, 0, s>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  ssd_out_kernel<X, N, N><<<n_state * p.n_tiles, THREADS, smem, s>>>(p);
+  ssd_out_kernel<X, N, P><<<n_state * p.n_tiles, THREADS, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -480,8 +498,9 @@ int launch(const Params& p, cudaStream_t s) {
 // x (B, S, H, P) with strides x_sb, x_ss, x_sh and P contiguous; dt (B, S, H)
 // f32 contiguous; A, D (H,) f32; Bm, Cm (B, S, N) with strides (b_sb, b_ss),
 // (c_sb, c_ss) and N contiguous, in x's type; h0 (B, H, N, P) f32 or null.
-// x, Bm and Cm start and step by multiples of 4 elements. N = P = d_state in
-// {16, 64}; chunk is min(chunk, S), at most 2048. Out: y (B, S, H, P) in x's
+// x, Bm and Cm start and step by multiples of 4 elements. (N, P) = (d_state,
+// head_dim) in {(16, 16), (64, 64), (128, 64)}; chunk is min(chunk, S), at
+// most 2048. Out: y (B, S, H, P) in x's
 // type and h_final (B, H, N, P) f32, contiguous. Workspaces, f32: states and
 // starts (B, nC, H, N, P), csum (B, H, nC, Lp), cb (B, nC, Lp, Lp), with nC =
 // ceil(S / chunk) and Lp = chunk rounded up to 64. dtype: 0 = float32, 1 =
@@ -490,7 +509,8 @@ int launch(const Params& p, cudaStream_t s) {
 extern "C" int repro_ssd_chunked(const void* x, const void* dt, const void* A, const void* Bm,
                                  const void* Cm, const void* D, const void* h0, void* y,
                                  void* h_final, void* states, void* starts, void* csum, void* cb,
-                                 int batch, int seq, int heads, int d_state, int chunk,
+                                 int batch, int seq, int heads, int d_state, int head_dim,
+                                 int chunk,
                                  long long x_sb, long long x_ss, long long x_sh, long long b_sb,
                                  long long b_ss, long long c_sb, long long c_ss, int dtype,
                                  void* stream) {
@@ -523,15 +543,18 @@ extern "C" int repro_ssd_chunked(const void* x, const void* dt, const void* A, c
   p.n_chunks = (seq + chunk - 1) / chunk;
   p.n_tiles = (chunk + T - 1) / T;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int shape = d_state * 1000 + head_dim;
   if (dtype == 0) {
-    switch (d_state) {
-      case 16: return launch<float, 16>(p, s);
-      case 64: return launch<float, 64>(p, s);
+    switch (shape) {
+      case 16016: return launch<float, 16, 16>(p, s);
+      case 64064: return launch<float, 64, 64>(p, s);
+      case 128064: return launch<float, 128, 64>(p, s);
     }
   } else if (dtype == 1) {
-    switch (d_state) {
-      case 16: return launch<__nv_bfloat16, 16>(p, s);
-      case 64: return launch<__nv_bfloat16, 64>(p, s);
+    switch (shape) {
+      case 16016: return launch<__nv_bfloat16, 16, 16>(p, s);
+      case 64064: return launch<__nv_bfloat16, 64, 64>(p, s);
+      case 128064: return launch<__nv_bfloat16, 128, 64>(p, s);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);

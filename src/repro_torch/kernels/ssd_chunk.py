@@ -63,9 +63,9 @@ def ssd_chunked(
             or (h0 is not None and h0.shape != (Bsz, H, N, P))):
         raise ValueError(f"bad shapes x {tuple(x.shape)} dt {tuple(dt.shape)} A {tuple(A.shape)} "
                          f"Bm {tuple(Bm.shape)} Cm {tuple(Cm.shape)} D {tuple(D.shape)}")
-    if N != P or N not in _build.STATE_DIMS:
-        raise ValueError(f"ssd_chunked kernel is built for d_state = head dim in "
-                         f"{_build.STATE_DIMS}, got N {N}, P {P}")
+    if (N, P) not in _build.SSD_SHAPES:
+        raise ValueError(f"ssd_chunked kernel is built for (d_state, head dim) in "
+                         f"{_build.SSD_SHAPES}, got N {N}, P {P}")
     L = min(chunk, S)
     if S < 1 or not 1 <= L <= MAX_CHUNK:
         raise ValueError(f"ssd_chunked kernel takes 1 <= min(chunk, S) <= {MAX_CHUNK}, got "
@@ -86,7 +86,7 @@ def ssd_chunked(
         err = _build.kernel("ssd_chunked")(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(),
             None if h0 is None else h0.data_ptr(), y.data_ptr(), h.data_ptr(), states[0].data_ptr(),
-            states[1].data_ptr(), csum.data_ptr(), cb.data_ptr(), Bsz, S, H, N, L,
+            states[1].data_ptr(), csum.data_ptr(), cb.data_ptr(), Bsz, S, H, N, P, L,
             x.stride(0), x.stride(1), x.stride(2), Bm.stride(0), Bm.stride(1), Cm.stride(0),
             Cm.stride(1), _build.DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream,
         )

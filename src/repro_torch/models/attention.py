@@ -200,13 +200,14 @@ def prefill_attention(
     window: Optional[int] = None,
     use_rope: bool = True,
     cross_kv: Optional[tuple[torch.Tensor, torch.Tensor]] = None,  # (B, S_kv, K, hd)
+    sm_scale: Optional[float] = None,
     use_kernel: bool = True,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Self-attention over the sequence (causal, or bidirectional with
     ``causal=False``), or with ``cross_kv`` attention of the sequence's
     queries over given keys and values, each optionally within a sliding
-    ``window`` (zamba2's shared attention). Returns (out (B,S,d), (k, v) in
-    (B,K,S,hd) layout). In a sequence-parallel region ``x`` and ``out`` are
+    ``window`` (zamba2's shared attention), with softmax scale ``sm_scale``
+    (None: 1/sqrt(hd)). Returns (out (B,S,d), (k, v) in (B,K,S,hd) layout). In a sequence-parallel region ``x`` and ``out`` are
     the rank's block of the sequence, ``positions`` and K/V the whole."""
     split = p.tp is not None and p.tp.heads
     x = sh.enter(x, split)
@@ -221,12 +222,13 @@ def prefill_attention(
     vh = v.transpose(1, 2).contiguous()
     tp = p.tp
     if tp is None:
-        out = ops.flash_attention(qh, kh, vh, causal=causal, window=window,
+        out = ops.flash_attention(qh, kh, vh, causal=causal, sm_scale=sm_scale, window=window,
                                   use_kernel=use_kernel)
     else:
         n_q = qh.shape[1]
         out = ops.flash_attention(qh, _kv_for_heads(kh, tp, n_q), _kv_for_heads(vh, tp, n_q),
-                                  causal=causal, window=window, use_kernel=use_kernel)
+                                  causal=causal, sm_scale=sm_scale, window=window,
+                                  use_kernel=use_kernel)
     y = torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), p.wo)
     y = shard(sh.leave(y, split), "batch", "seq", None)
     return y, (kh, vh)
@@ -244,9 +246,10 @@ def decode_attention_step(
     window: Optional[int] = None,
     use_rope: bool = True,
     update_cache: bool = True,
+    sm_scale: Optional[float] = None,
     use_kernel: bool = True,
 ) -> torch.Tensor:
-    """One decode step. Returns out (B,1,d); the new token's K and V rows are
+    """One decode step, with softmax scale ``sm_scale`` (None: 1/sqrt(hd)). Returns out (B,1,d); the new token's K and V rows are
     written into the caches in place.
 
     With ``window``, the cache has size S == window and new entries are
@@ -265,11 +268,12 @@ def decode_attention_step(
                                                        and p.tp.cache_dim == 2):
         return _decode_length_sharded(p, x, k_cache, v_cache, lengths, rope_theta=rope_theta,
                                       eps=eps, window=window, use_rope=use_rope,
-                                      update_cache=update_cache, use_kernel=use_kernel)
+                                      update_cache=update_cache, sm_scale=sm_scale,
+                                      use_kernel=use_kernel)
     if p.tp is not None:
         return _decode_placed(p, x, k_cache, v_cache, lengths, rope_theta=rope_theta, eps=eps,
                               window=window, use_rope=use_rope, update_cache=update_cache,
-                              use_kernel=use_kernel)
+                              sm_scale=sm_scale, use_kernel=use_kernel)
     S = k_cache.shape[2]
     positions = lengths[:, None]  # (B, 1) absolute position of the new token
     if update_cache:
@@ -282,7 +286,7 @@ def decode_attention_step(
         q = _project_q(p, x, positions, rope_theta, eps, use_rope)
         valid = torch.clamp(lengths, max=S)
     qh = q.transpose(1, 2).contiguous()       # (B, H, 1, hd)
-    out = ops.decode_attention(qh, k_cache, v_cache, valid.to(torch.int32),
+    out = ops.decode_attention(qh, k_cache, v_cache, valid.to(torch.int32), sm_scale=sm_scale,
                                use_kernel=use_kernel)
     return torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), p.wo)
 
@@ -308,7 +312,7 @@ def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
 
 
 def _decode_placed(p: Attention, x, k_cache, v_cache, lengths, *, rope_theta, eps, window,
-                   use_rope, update_cache, use_kernel) -> torch.Tensor:
+                   use_rope, update_cache, sm_scale, use_kernel) -> torch.Tensor:
     """A decode step on this rank's heads over a cache split over kv heads
     (the kernel on the rank's heads), over head_dim (partial scores
     all-reduced, in plain ops), or not split. The decode kernel needs whole
@@ -328,7 +332,8 @@ def _decode_placed(p: Attention, x, k_cache, v_cache, lengths, *, rope_theta, ep
         n_q = qh.shape[1]
         out = ops.decode_attention(qh, _kv_for_heads(k_cache, tp, n_q).contiguous(),
                                    _kv_for_heads(v_cache, tp, n_q).contiguous(),
-                                   valid.to(torch.int32), use_kernel=use_kernel)
+                                   valid.to(torch.int32), sm_scale=sm_scale,
+                                   use_kernel=use_kernel)
         return _out_proj(p, out)
     # head_dim split: every head's scores over this rank's columns, summed
     if qh.is_cuda:
@@ -339,7 +344,7 @@ def _decode_placed(p: Attention, x, k_cache, v_cache, lengths, *, rope_theta, ep
     H = q_all.shape[1]
     qs = sh.local_block(q_all, 3, sh.MODEL_AXIS).reshape(B, K, H // K, hd_l).float()
     s = sh.all_reduce(torch.einsum("bkgd,bksd->bkgs", qs, k_cache.float()))
-    s = s * (1.0 / math.sqrt(q_all.shape[-1]))
+    s = s * (sm_scale if sm_scale is not None else 1.0 / math.sqrt(q_all.shape[-1]))
     keep = torch.arange(S, device=s.device) < valid[:, None]
     s = s.masked_fill(~keep[:, None, None], -1e30)
     o = torch.einsum("bkgs,bksd->bkgd", torch.softmax(s, dim=-1), v_cache.float())
@@ -348,7 +353,8 @@ def _decode_placed(p: Attention, x, k_cache, v_cache, lengths, *, rope_theta, ep
 
 
 def _decode_length_sharded(p: Attention, x, k_cache, v_cache, lengths, *, rope_theta, eps,
-                           window, use_rope, update_cache, use_kernel) -> torch.Tensor:
+                           window, use_rope, update_cache, sm_scale,
+                           use_kernel) -> torch.Tensor:
     """A decode step over a cache sharded along its length over the model
     axis: every head's query, this rank's slice of the keys."""
     tp = p.tp
@@ -363,7 +369,8 @@ def _decode_length_sharded(p: Attention, x, k_cache, v_cache, lengths, *, rope_t
     if k_new is not None:
         k_new, v_new = _full_heads(k_new, kv), _full_heads(v_new, kv)
     out = _sharded_flash_decode(_full_heads(qh, heads), k_cache, v_cache, k_new, v_new, slot,
-                                valid, sm_scale=1.0 / math.sqrt(qh.shape[-1]),
+                                valid, sm_scale=(sm_scale if sm_scale is not None
+                                                 else 1.0 / math.sqrt(qh.shape[-1])),
                                 use_kernel=use_kernel)
     return _out_proj(p, _local_heads(out, tp))
 

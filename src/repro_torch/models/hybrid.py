@@ -68,7 +68,7 @@ def _dims(cfg: ArchConfig):
     ssm = cfg.ssm
     d_inner = ssm.expand * cfg.d_model
     N = ssm.d_state
-    P = ssm.d_state  # head dim = d_state (mamba2 default P=64=N)
+    P = ssm.head_dim or N  # head dim; zamba2's equals d_state
     H = d_inner // P
     return d_inner, H, P, N
 
@@ -212,10 +212,12 @@ def _mamba_mix(cfg: ArchConfig, p: MambaBlock, x, ctx):
     return xs, z, Bm, Cm, dt, A, D, new_ctx
 
 
-def _mamba_out(cfg: ArchConfig, p: MambaBlock, x, y, z):
+def _mamba_out(cfg: ArchConfig, p: MambaBlock, y, z):
+    """The gated norm and the out projection: the mixer's output, without
+    the residual."""
     split = _split(p)
     y = rms_norm_split(y * F.silu(z), p.ynorm, cfg.norm_eps, split)
-    return x + sh.leave(y @ p.w_out, split)
+    return sh.leave(y @ p.w_out, split)
 
 
 def _mamba_in(cfg: ArchConfig, p: MambaBlock, x):
@@ -230,25 +232,41 @@ def _mamba_proj(cfg: ArchConfig, p: MambaBlock, x):
     return torch.split(u, [d_inner, d_inner, N, N, H], dim=-1)  # xs, z, Bm, Cm, dt
 
 
-def mamba_block(cfg: ArchConfig, p: MambaBlock, x, use_kernel: bool = True):
-    """x: (B,S,d), from a zero state. Returns (y, (h (B,H,N,P), conv ctx)),
-    the state of the rank's heads and channels on a split block."""
+def mamba_mixer(cfg: ArchConfig, p: MambaBlock, x, use_kernel: bool = True):
+    """x: (B,S,d), from a zero state. Returns (the mixer's output, (h
+    (B,H,N,P), conv ctx)), the state of the rank's heads and channels on a
+    split block."""
     d_inner, H, P, N = _dims(cfg)
     B, S, _ = x.shape
     xs, z, Bm, Cm, dt, A, D, new_ctx = _mamba_mix(cfg, p, x, None)
     y, h = ops.ssd_chunked(xs.reshape(B, S, -1, P), dt, A, Bm, Cm, D, chunk=cfg.ssm.chunk,
                            use_kernel=use_kernel)
-    return _mamba_out(cfg, p, x, y.reshape(B, S, -1), z), (h, new_ctx)
+    return _mamba_out(cfg, p, y.reshape(B, S, -1), z), (h, new_ctx)
 
 
-def mamba_block_step(cfg: ArchConfig, p: MambaBlock, x, state):
-    """x: (B,1,d); state: (h, conv ctx). Returns (y, (h, conv ctx)), new tensors."""
+def mamba_mixer_step(cfg: ArchConfig, p: MambaBlock, x, state):
+    """x: (B,1,d); state: (h, conv ctx). Returns (the mixer's output, (h,
+    conv ctx)), new tensors."""
     d_inner, H, P, N = _dims(cfg)
     B = x.shape[0]
     h, ctx = state
     xs, z, Bm, Cm, dt, A, D, new_ctx = _mamba_mix(cfg, p, x, ctx)
     y, h = ssd_step(xs[:, 0].reshape(B, -1, P), dt[:, 0], A, Bm[:, 0], Cm[:, 0], D, h)
-    return _mamba_out(cfg, p, x, y.reshape(B, 1, -1), z), (h, new_ctx)
+    return _mamba_out(cfg, p, y.reshape(B, 1, -1), z), (h, new_ctx)
+
+
+def mamba_block(cfg: ArchConfig, p: MambaBlock, x, use_kernel: bool = True):
+    """x: (B,S,d), from a zero state. Returns (x + the mixer's output, (h
+    (B,H,N,P), conv ctx))."""
+    y, state = mamba_mixer(cfg, p, x, use_kernel)
+    return x + y, state
+
+
+def mamba_block_step(cfg: ArchConfig, p: MambaBlock, x, state):
+    """x: (B,1,d); state: (h, conv ctx). Returns (x + the mixer's output,
+    (h, conv ctx)), new tensors."""
+    y, state = mamba_mixer_step(cfg, p, x, state)
+    return x + y, state
 
 
 # ---------------------------------------------------------------------------

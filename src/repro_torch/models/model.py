@@ -19,9 +19,11 @@ counterparts:
 :class:`~repro_torch.models.transformer.Transformer` (dense, moe, vlm), an
 :class:`~repro_torch.models.encdec.EncDec` (whisper-small, whose ``batch``
 is ``{"frames", "tokens"}`` in ``forward`` and ``{"frames"}`` in
-``prefill``), a :class:`~repro_torch.models.hybrid.Zamba2` (zamba2-1.2b) or
-an :class:`~repro_torch.models.xlstm.XLSTM` (xlstm-1.3b). Every family of
-``repro`` is ported.
+``prefill``), a :class:`~repro_torch.models.hybrid.Zamba2` (zamba2-1.2b),
+an :class:`~repro_torch.models.xlstm.XLSTM` (xlstm-1.3b) or a
+:class:`~repro_torch.models.hybrid_moe.GraniteHybrid` (``hybrid_moe``:
+granite-4.0-h, a family ``repro`` does not have). Every family of ``repro``
+is ported.
 
 ``decode_tokens`` is the greedy loop that ``repro`` rolls into one
 ``lax.scan``: a fixed-shape loop of ``n_steps`` steps whose argmax stays on
@@ -65,7 +67,7 @@ from .. import trace
 from .._device import resolve_device
 from ..configs.base import ArchConfig
 from ..distributed import sharding as sh
-from . import attention, encdec, hybrid, transformer, xlstm
+from . import attention, encdec, hybrid, hybrid_moe, transformer, xlstm
 from .attention import Attention
 from .graphs import GraphCache
 from .layers import gather_logits
@@ -77,13 +79,15 @@ _FAMILIES = {
     "vlm": (transformer, transformer.Transformer),
     "encdec": (encdec, encdec.EncDec),
     "hybrid": (hybrid, hybrid.Zamba2),
+    "hybrid_moe": (hybrid_moe, hybrid_moe.GraniteHybrid),
     "xlstm": (xlstm, xlstm.XLSTM),
 }
 
 
 def cache_len(cache: dict[str, torch.Tensor]) -> Optional[int]:
     """The rows of a cache's K/V: ``k`` (transformer, encdec), ``attn_k``
-    (zamba2's shared block); None for a cache of recurrent state alone."""
+    (zamba2's shared block, hybrid_moe's attention layers); None for a
+    cache of recurrent state alone."""
     for name in ("k", "attn_k"):
         if name in cache:
             return cache[name].shape[3]

@@ -205,7 +205,7 @@ class ModelServingBackend:
 
     def requeue_penalty_ms(self, payload: Any) -> float:
         """Cost of moving an in-flight stream to another replica."""
-        if self.cfg.family in ("xlstm", "hybrid"):
+        if self.cfg.family in ("xlstm", "hybrid", "hybrid_moe"):
             return 5.0  # O(d_state) state transfer
         if self.cfg.family == "encdec":
             # the new replica re-encodes the audio window (cross-attention

@@ -387,7 +387,7 @@ def test_ssd_kernel_is_built_with_the_others_and_names_no_attention_kernel():
     from repro_torch.kernels import _build
 
     assert "ssd_chunked" in _build.KERNELS and _build.SOURCES["ssd_chunked"] == "ssd_chunk.cu"
-    assert _build.STATE_DIMS == (16, 64)
+    assert _build.SSD_SHAPES == ((16, 16), (64, 64), (128, 64))
     src = (_build.CSRC / "ssd_chunk.cu").read_text()
     names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", src)
     assert sorted(names) == ["ssd_out_kernel", "ssd_pass_kernel", "ssd_state_kernel"]

@@ -9,7 +9,9 @@ Every test carries the ``cuda`` marker and skips where
 Inputs are made as zamba2's Mamba2 block hands them over: ``x``, ``Bm`` and
 ``Cm`` slices of one packed tensor (strided, as the conv's output is), ``dt``
 a softplus, ``A`` the initial ``-linspace(1, 16, H)``, all values
-bf16-representable. Both sides run in f32, and y and the final state are held
+bf16-representable. granite-4.0-h's shape (128 heads of 64, d_state 128) is
+run also with ``dt`` a hundredth of that, so that the state carried from
+earlier chunks reaches every row of the later ones. Both sides run in f32, and y and the final state are held
 to test_torch_ssm.py's rule: max |diff| <= REL x max |want| (the two sides
 sum the products in different orders; csum and the decays are the same bit
 for bit). A bf16 call must give the f32 call's y rounded to bf16 and its
@@ -40,15 +42,17 @@ def _card():
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
 
 
-def _inputs(B, S, H, N, seed, dtype=torch.float32):
+def _inputs(B, S, H, N, seed, dtype=torch.float32, P=None, dt_scale=1.0):
     """(x, dt, A, Bm, Cm, D) on the card; x, Bm and Cm views of one packed
-    (B, S, H * N + 2 N) tensor in ``dtype``."""
+    (B, S, H * P + 2 N) tensor in ``dtype`` (P = N unless given)."""
+    P = P or N
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    packed = torch.randn(B, S, H * N + 2 * N, generator=gen, device="cuda")
+    packed = torch.randn(B, S, H * P + 2 * N, generator=gen, device="cuda")
     packed = packed.to(torch.bfloat16).to(dtype)
-    x = packed[..., :H * N].reshape(B, S, H, N)
-    Bm, Cm = packed[..., H * N:H * N + N], packed[..., H * N + N:]
+    x = packed[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = packed[..., H * P:H * P + N], packed[..., H * P + N:]
     dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=gen, device="cuda"))
+    dt = dt * dt_scale
     A = -torch.linspace(1.0, 16.0, H, device="cuda")
     D = torch.randn(H, generator=gen, device="cuda")
     return x, dt, A, Bm, Cm, D
@@ -58,23 +62,27 @@ def _rel(got, want):
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
-CASES = {  # name: (B, S, H, N, chunk, with h0)
-    "zamba2_2048": (1, 2048, 64, 64, 256, False),
-    "zamba2_3840": (1, 3840, 64, 64, 256, False),
-    "ragged": (1, 600, 64, 64, 256, False),
-    "shorter_than_chunk": (1, 100, 64, 64, 256, False),
-    "batch_2": (2, 520, 8, 64, 256, False),
-    "h0": (2, 300, 8, 64, 256, True),
-    "d_state_16": (2, 80, 8, 16, 32, True),
-    "d_state_16_ragged": (1, 45, 4, 16, 32, False),
+CASES = {  # name: (B, S, H, N, P, chunk, with h0, dt scale)
+    "zamba2_2048": (1, 2048, 64, 64, 64, 256, False, 1.0),
+    "zamba2_3840": (1, 3840, 64, 64, 64, 256, False, 1.0),
+    "ragged": (1, 600, 64, 64, 64, 256, False, 1.0),
+    "shorter_than_chunk": (1, 100, 64, 64, 64, 256, False, 1.0),
+    "batch_2": (2, 520, 8, 64, 64, 256, False, 1.0),
+    "h0": (2, 300, 8, 64, 64, 256, True, 1.0),
+    "d_state_16": (2, 80, 8, 16, 16, 32, True, 1.0),
+    "d_state_16_ragged": (1, 45, 4, 16, 16, 32, False, 1.0),
+    "granite4h_2048": (1, 2048, 128, 128, 64, 256, False, 0.01),
+    "granite4h_3840": (1, 3840, 128, 128, 64, 256, False, 0.01),
+    "granite4h_3840_dt1": (1, 3840, 128, 128, 64, 256, False, 1.0),
+    "granite4h_ragged_h0": (2, 600, 8, 128, 64, 256, True, 0.01),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_kernel_matches_the_plain_scan(case):
-    B, S, H, N, chunk, with_h0 = CASES[case]
-    args = _inputs(B, S, H, N, seed=len(case))
-    h0 = (torch.randn(B, H, N, N, generator=torch.Generator(device="cuda").manual_seed(7),
+    B, S, H, N, P, chunk, with_h0, dt_scale = CASES[case]
+    args = _inputs(B, S, H, N, seed=len(case), P=P, dt_scale=dt_scale)
+    h0 = (torch.randn(B, H, N, P, generator=torch.Generator(device="cuda").manual_seed(7),
                       device="cuda") if with_h0 else None)
     with torch.no_grad():
         want_y, want_h = plain_scan(*args, chunk=chunk, h0=h0)
@@ -140,7 +148,7 @@ def test_one_zamba2_prefill_calls_the_kernel_once_a_layer():
     from repro_torch.models.model import build_model
 
     cfg = get_config("zamba2-1.2b")
-    assert cfg.ssm.d_state in _build.STATE_DIMS
+    assert (cfg.ssm.d_state, cfg.ssm.head_dim or cfg.ssm.d_state) in _build.SSD_SHAPES
     m = build_model(cfg)
     params = m.init(0)
     tokens = torch.randint(0, cfg.vocab, (1, 512), device="cuda", dtype=torch.int32)
@@ -155,3 +163,33 @@ def test_one_zamba2_prefill_calls_the_kernel_once_a_layer():
     with torch.no_grad():
         plain.prefill(plain.init(0), {"tokens": tokens}, plain.init_cache(1, 1024))
     assert ops.launches["ssd_chunked"] == 0 and ops.plain["ssd_chunked"] == 2
+
+
+def test_one_granite4h_prefill_calls_the_kernel_once_a_mamba2_layer():
+    """granite-4.0-h-small at its published widths and its first 6 layers
+    (5 Mamba2, then attention): one prefill launches the SSD kernel at d_state
+    128 and heads of 64 once in each Mamba2 layer and K2 once, and calls no
+    plain scan."""
+    import json
+    import sys
+    from pathlib import Path
+
+    from repro_torch.models.model import build_model
+
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    from portbench.harness import arch_config
+
+    spec = json.loads((root / "portbench" / "configs" / "granite-4.0-h-small.json").read_text())
+    cfg = arch_config(dict(spec, n_layers=6))
+    assert (cfg.ssm.d_state, cfg.ssm.head_dim) in _build.SSD_SHAPES
+    m = build_model(cfg)
+    params = m.init(0)
+    tokens = torch.randint(0, cfg.vocab, (1, 600), device="cuda", dtype=torch.int32)
+    ops.reset_counters()
+    with torch.no_grad():
+        logits, _ = m.prefill(params, {"tokens": tokens}, m.init_cache(1, 1024))
+        torch.cuda.synchronize()
+    assert ops.launches == _build.counts(ssd_chunked=5, flash_attention=1)
+    assert ops.plain == _build.counts()
+    assert torch.isfinite(logits).all()
