@@ -5,7 +5,7 @@
 Run from the root of a checkout. It imports ``src/repro_torch`` (never
 ``jax``, never ``repro``) and, in order:
 
-1. builds the four hand-written kernels from ``src/repro_torch/kernels/csrc``;
+1. builds the hand-written kernels from ``src/repro_torch/kernels/csrc``;
 2. holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes, at the sweep shapes of ``tests/test_kernels.py`` and
    at the edge shapes of ``tests/test_torch_kernels_cuda.py``, and K2 with
@@ -53,7 +53,11 @@ Run from the root of a checkout. It imports ``src/repro_torch`` (never
    one layer's MoE FFN against a decode step; (d) runs deepseek-moe-16b at
    full width and ``DEEPSEEK_LAYERS`` layers (shared experts, head_dim 128,
    16 kv heads) on the kernel path against the plain path, in bf16 and f32;
-   and times K2 and K3 at both archs' shapes;
+   and times K2 and K3 at both archs' shapes; (e) holds the MoE's
+   queue-position kernel to its plain cumsum form, bit for bit, on routing
+   indices drawn on the card at granite's S 896 (32 experts, top-8) and
+   granite-4.0-h-small's S 2,048 and 3,840 (72 experts, top-10), and times
+   both beside the kernel's byte bound;
 8. the encoder-decoder family and the pipeline: (a) serves ``--requests``
    requests (decoder start token ``1 + i % 7``, zero audio frames, as the
    pipeline's ASR stage sends them) on full-width whisper-small (12 + 12
@@ -227,6 +231,8 @@ SOURCES = {
                          "src/repro/kernels/decode_attention.py:72"),
     # repro's ssd_chunked (src/repro/models/ssm.py) is plain jnp: no Pallas kernel
     "ssd_chunked": ("src/repro_torch/kernels/csrc/ssd_chunk.cu", "none"),
+    # so are repro's MoE queue positions (src/repro/models/moe.py)
+    "moe_positions": ("src/repro_torch/kernels/csrc/moe_positions.cu", "none"),
 }
 # rtol = atol, per kernel and dtype (PERF.md says how each was set). bf16
 # flash: the kernel rounds P to bf16 before PV, as the Pallas kernel does, and
@@ -247,6 +253,7 @@ TOL = {
 BF16_LOGIT_LIMIT = 1.1e-2
 MOE_ARCH = "granite-moe-1b-a400m"  # phase 7's served arch
 DEEPSEEK_LAYERS = 4  # of deepseek-moe-16b's 28, at full width (about 5.5 GB in bf16)
+GRANITE4H_ROUTER = (72, 10)  # granite-4.0-h-small's experts and top-k (portbench/configs)
 DEEPSEEK_STEPS = 8   # its teacher-forced f32 decode steps
 WHISPER = "whisper-small"  # phase 8's served arch, the pipeline's ASR stage
 ZAMBA = "zamba2-1.2b"  # phase 10's hybrid: Mamba2 and a shared windowed attention block
@@ -1185,6 +1192,44 @@ def moe_ffn_share(engine, step_ms, card_str):
     print(f"[7] MoE FFN, heaviest kernels (share of its kernel time): {heaviest(dev)}")
 
 
+def moe_positions_row(S, E, K):
+    """The queue-position kernel on one row of ``S`` tokens routed to ``K``
+    of ``E`` experts each, drawn on the card as the router gives them (the
+    top ``K`` of uniform draws: ``K`` distinct experts a token): (shape text,
+    max_abs_err, kernel ms, plain ms, library ms, bound ms, bound by) as
+    :func:`flash_row`. The positions must equal the plain cumsum form's bit
+    for bit. The bound is the kernel's bytes at 3.35 TB/s: each int64 index
+    read once and each int32 position written once. No library has it."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_positions import CHUNK, moe_positions
+
+    gen = torch.Generator(device=DEVICE).manual_seed(S * E + K)
+    idx = torch.rand(1, S, E, generator=gen, device=DEVICE).topk(K, dim=-1).indices
+    got, want = moe_positions(idx, E), ref.moe_positions_ref(idx, E)
+    same = torch.equal(got, want)
+    text = f"idx(1,{S},{K}) int64 over {E} experts ({-(-S * K // CHUNK)} chunks)"
+    print(f"[7e] moe_positions {text}: positions equal to the cumsum form's: {same} (longest "
+          f"queue {int(want.max()) + 1} of {S * K} pairs)")
+    if not same:
+        raise PhaseError(f"moe_positions kernel disagrees with the cumsum form at S {S}, E {E}")
+    bms, by = bound(12 * S * K, 0, torch.float32)
+    return (text, max_err(got, want), graph_ms(lambda: moe_positions(idx, E)),
+            graph_ms(lambda: ref.moe_positions_ref(idx, E)), None, bms, by)
+
+
+def moe_positions_phase(cfg, launches, card_str):
+    """7e: the queue-position kernel alone at granite's longest chat prompt
+    (``launches``: phase 7a's) and at granite-4.0-h-small's docs prompts.
+    Returns the kernels-line entry of the granite row."""
+    rows = report_rows([("moe_positions", moe_positions_row(896, cfg.moe.n_experts,
+                                                            cfg.moe.top_k))],
+                       launches, card_str, "7e", suffix=f"[{cfg.arch_id} S 896]")
+    for S in (2048, 3840):
+        report_rows([("moe_positions", moe_positions_row(S, *GRANITE4H_ROUTER))],
+                    None, card_str, "7e", suffix=f"[granite-4.0-h S {S}]")
+    return rows
+
+
 def moe_phase(args, card_str):
     """Phase 7: granite-moe-1b-a400m served at full width behind the gate on
     the captured path, held to its exact launches, to the eager path and to
@@ -1200,9 +1245,11 @@ def moe_phase(args, card_str):
     longest = max(reqs, key=lambda r: len(r.prompt))
     S, tb = len(longest.prompt), _bucket(args.new_tokens, base=8)
     # 7a. serving, both arms: one K2 launch a layer a request, one K3 launch
-    # a layer a decode step, and nothing else
+    # a layer a decode step, one queue-position call a layer a prefill and a
+    # decode step, and nothing else
     expected = kernel_counts(flash_attention=2 * len(reqs) * cfg.n_layers,
-                             decode_attention=2 * len(reqs) * cfg.n_layers * tb)
+                             decode_attention=2 * len(reqs) * cfg.n_layers * tb,
+                             moe_positions=2 * len(reqs) * cfg.n_layers * (1 + tb))
     engines, results, launches = serve_and_count(cfg, reqs, args, card_str, expected, "7a")
     # 7b. captured against eager
     rows = captured_vs_eager(engines["baseline"], reqs, results["baseline"], ph="7b")
@@ -1240,6 +1287,7 @@ def moe_phase(args, card_str):
          ("decode_attention", decode_row((1, ds.n_heads, ds.n_kv_heads, cache_len, ds.head_dim),
                                          S + tb // 2))],
         None, card_str, "7d", suffix="[deepseek-moe-16b]")
+    kernels += moe_positions_phase(cfg, launches, card_str)
     print(f"[7] phase 7 took {time.perf_counter() - t0:.1f} s")
     return kernels
 
@@ -2593,7 +2641,9 @@ def train_phase(args, card_str):
             fwd, bwd = 2 * c.n_layers, c.n_layers
         # under autograd the SSD scan is the plain one: each Mamba2 block and its recompute
         ssd = 2 * c.n_layers if c.family == "hybrid" else 0
-        expected = {"launches": kernel_counts(flash_attention=fwd),
+        # the queue positions go to their kernel: each MoE layer and its recompute
+        moe = 2 * c.n_layers if c.moe is not None else 0
+        expected = {"launches": kernel_counts(flash_attention=fwd, moe_positions=moe),
                     "backward": kernel_counts(flash_attention=bwd),
                     "plain": kernel_counts(ssd_chunked=ssd)}
         shares = kernel_vs_plain_step(c, batch, args.seed, expected, "11d", tag)

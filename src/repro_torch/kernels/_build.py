@@ -40,12 +40,13 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ("matmul", "flash_attention", "decode_attention", "ssd_chunked")
+KERNELS = ("matmul", "flash_attention", "decode_attention", "ssd_chunked", "moe_positions")
 SOURCES = {
     "matmul": "matmul_probe.cu",
     "flash_attention": "flash_attention.cu",
     "decode_attention": "decode_attention.cu",
     "ssd_chunked": "ssd_chunk.cu",
+    "moe_positions": "moe_positions.cu",
 }
 # dtype codes of the C interface, the head dims the attention kernels are
 # instantiated for, and the (d_state, head dim) pairs of the SSD kernel
@@ -191,6 +192,9 @@ _SIGNATURES = {
         "repro_ssd_chunked",
         [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 7
         + [ctypes.c_int, ctypes.c_void_p],
+    ),
+    "moe_positions": (
+        "repro_moe_positions", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     ),
 }
 

@@ -1,4 +1,4 @@
-"""Dispatcher for the four kernels.
+"""Dispatcher for the kernels.
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the kernel's
 plain PyTorch version. ``use_kernel=False`` asks for the plain version on
@@ -19,7 +19,8 @@ Nothing trains through the matmul and decode-attention kernels; asked for a
 gradient on the card, they raise rather than return an output that autograd
 would treat as a constant. The SSD scan has no backward kernel either: under
 autograd it runs its plain version on the card too (zamba2's training),
-counted in ``plain``.
+counted in ``plain``. The MoE's queue positions take integer indices, which
+carry no gradient: a CUDA call goes to their kernel under autograd too.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from . import decode_attention as _k3
 from . import flash_attention as _k2
 from .decode_attention import decode_attention as _decode_attention
 from .matmul_probe import matmul as _matmul
+from .moe_positions import moe_positions as _moe_positions
 from .ssd_chunk import ssd_chunked as _ssd_chunked
 
 launches = _build.launches
@@ -137,3 +139,15 @@ def ssd_chunked(
         return _ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk, h0=h0)
     plain["ssd_chunked"] += 1
     return _plain_ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk, h0=h0)
+
+
+def moe_positions(gate_idx: torch.Tensor, n_experts: int, *,
+                  use_kernel: bool = True) -> torch.Tensor:
+    """Each (token, choice) pair's 0-based position in its expert's queue in
+    its own row, (B, S, K) int32 from ``gate_idx`` (B, S, K), unclipped. The
+    kernel on the card; the cumsum form (``ref.moe_positions_ref``) on the
+    CPU or with ``use_kernel=False``."""
+    if use_kernel and _on_card(gate_idx):
+        return _moe_positions(gate_idx, n_experts)
+    plain["moe_positions"] += 1
+    return ref.moe_positions_ref(gate_idx, n_experts)

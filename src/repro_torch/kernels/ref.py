@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the three kernels.
+"""Plain PyTorch versions of the kernels.
 
-They compute what ``repro.kernels.ref`` computes: the ground truth the CUDA
+They compute what ``repro.kernels.ref`` computes (the MoE's queue positions:
+what ``repro.models.moe`` computes inline): the ground truth the CUDA
 kernels are held against (``chip_smoke.py``, ``tests/test_torch_kernels.py``)
 and the path :mod:`repro_torch.kernels.ops` takes for a tensor on the CPU.
 """
@@ -81,3 +82,16 @@ def decode_attention_ref(
     valid = torch.arange(s_len, device=q.device) < lengths.to(q.device)[:, None]  # (batch, S)
     s = s.masked_fill(~valid[:, None, None], float("-inf"))
     return out, torch.logsumexp(s, dim=-1).reshape(batch, q_heads)
+
+
+def moe_positions_ref(gate_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Each (token, choice) pair's 0-based position in its expert's queue in
+    its own row b, pairs counted in (s, k) row-major order, unclipped: the
+    cumsum form of ``repro.models.moe.apply_moe`` (the f32 one-hot of every
+    pair summed down the row's S·K pairs, exact below 2**24 pairs). (B, S, K)
+    int32; a pair whose index lies outside [0, n_experts) gets 0."""
+    B, S, K = gate_idx.shape
+    onehot = (gate_idx[..., None] == torch.arange(n_experts, device=gate_idx.device)).float()
+    pos_in_e = torch.cumsum(onehot.reshape(B, S * K, n_experts), dim=1).reshape(onehot.shape)
+    pos_in_e = (pos_in_e - 1.0) * onehot                               # 0-based, only where routed
+    return torch.sum(pos_in_e * onehot, dim=-1).to(torch.int32)

@@ -126,9 +126,10 @@ def _attend_kw(cfg: ArchConfig) -> dict:
                 sm_scale=cfg.attention_multiplier or None)
 
 
-def _ffn(cfg: ArchConfig, p: Layer, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ArchConfig, p: Layer, x: torch.Tensor, use_kernel: bool) -> torch.Tensor:
     with trace.scope("ffn"):
-        return x + _scaled(p.mlp(rms_norm(x, p.ln2, cfg.norm_eps)), cfg.residual_multiplier)
+        return x + _scaled(p.mlp(rms_norm(x, p.ln2, cfg.norm_eps), use_kernel),
+                           cfg.residual_multiplier)
 
 
 def _embed(cfg: ArchConfig, params: GraniteHybrid, tokens: torch.Tensor) -> torch.Tensor:
@@ -168,7 +169,8 @@ def forward(cfg: ArchConfig, params: GraniteHybrid, tokens: torch.Tensor, *,
         def body(x, p=p):
             x = x + _scaled(_mixer_prefill(cfg, p, x, positions, use_kernel)[0],
                             cfg.residual_multiplier)
-            y, layer_aux = moe.apply_moe(cfg, p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
+            y, layer_aux = moe.apply_moe(cfg, p.mlp, rms_norm(x, p.ln2, cfg.norm_eps),
+                                         use_kernel)
             return x + _scaled(y, cfg.residual_multiplier), layer_aux
 
         x, layer_aux = _remat(body, x) if remat else body(x)
@@ -242,7 +244,7 @@ def prefill(cfg: ArchConfig, params: GraniteHybrid, tokens: torch.Tensor, cache,
                 k, v = state
                 store_prefill_kv(cache["attn_k"][i], k, None)
                 store_prefill_kv(cache["attn_v"][i], v, None)
-        x = _ffn(cfg, p, x + _scaled(y, cfg.residual_multiplier))
+        x = _ffn(cfg, p, x + _scaled(y, cfg.residual_multiplier), use_kernel)
     with trace.scope("logits"):
         logits = _logits(cfg, params, x[:, -1:])
     cache["lengths"].fill_(S)
@@ -267,7 +269,7 @@ def decode_step(cfg: ArchConfig, params: GraniteHybrid, cache, tokens: torch.Ten
                 y = decode_attention_step(p.attn, rms_norm(x, p.ln1, cfg.norm_eps),
                                           cache["attn_k"][i], cache["attn_v"][i], lengths,
                                           use_kernel=use_kernel, **_attend_kw(cfg))
-        x = _ffn(cfg, p, x + _scaled(y, r))
+        x = _ffn(cfg, p, x + _scaled(y, r), use_kernel)
     with trace.scope("logits"):
         logits = _logits(cfg, params, x)
     lengths.add_(1)

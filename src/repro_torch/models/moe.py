@@ -6,8 +6,9 @@ in plain PyTorch ops (the reference runs it outside any Pallas kernel too).
 
 Capacity: each expert processes at most C = max(4, int(S·top_k·cf/E))
 tokens per sequence row; overflow tokens fall through (the residual passes
-them unchanged): standard token dropping. Queue positions come from a
-cumulative sum over a row's S·K (token, choice) pairs, so rows never share
+them unchanged): standard token dropping. Queue positions count a row's S·K
+(token, choice) pairs in order (``ops.moe_positions``: a hand-written kernel
+on the card, the reference's cumsum form elsewhere), so rows never share
 capacity and a batch of rows routes each row as it would alone.
 
 The dispatch is the reference's dense one: ``(B, S, E, C)`` dispatch and
@@ -28,6 +29,7 @@ from torch import nn
 from ..configs.base import ArchConfig, MoEConfig
 from ..distributed import sharding as sh
 from ..distributed.sharding import shard
+from ..kernels import ops
 from .layers import SwiGLU, normal_init, swiglu
 
 
@@ -81,10 +83,10 @@ class MoE(nn.Module):
         for w, scale in ws:
             w.copy_(normal_init(tuple(w.shape), scale, w.dtype, generator))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_kernel: bool = True) -> torch.Tensor:
         """The FFN's output alone: what a decode step keeps of
         :func:`apply_moe` (``repro`` computes the aux there and drops it)."""
-        return _experts(self.m, self, x, router_probs(self, x)[1])
+        return _experts(self.m, self, x, router_probs(self, x)[1], use_kernel=use_kernel)
 
 
 def router_probs(p: MoE, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -117,28 +119,25 @@ def gates(m: MoEConfig, probs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor
     return gate_vals, gate_idx
 
 
-def dispatch_combine(m: MoEConfig, probs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def dispatch_combine(m: MoEConfig, probs: torch.Tensor,
+                     use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """The (B, S, E, C) f32 dispatch mask (1 where token s takes slot c of
     expert e) and combine weights (its gate value there)."""
-    B, S, E = probs.shape
-    K = m.top_k
-    C = _capacity(S, K, E, m.capacity_factor)
+    _, S, E = probs.shape
+    C = _capacity(S, m.top_k, E, m.capacity_factor)
     gate_vals, gate_idx = gates(m, probs)
-    onehot = _one_hot(gate_idx, E)                                     # (B, S, K, E)
     # position of each (token, k) within its expert queue, per row
-    pos_in_e = torch.cumsum(onehot.reshape(B, S * K, E), dim=1).reshape(B, S, K, E)
-    pos_in_e = (pos_in_e - 1.0) * onehot                               # 0-based, only where routed
-    keep = (pos_in_e < C) & (onehot > 0)
-    pos = torch.sum(pos_in_e * onehot, dim=-1).to(torch.int32)         # (B, S, K)
-    cap_oh = _one_hot(pos, C) * keep.any(dim=-1)[..., None].float()    # (B, S, K, C)
-    routed = onehot * keep.float()
+    pos = ops.moe_positions(gate_idx, E, use_kernel=use_kernel)       # (B, S, K) int32
+    keep = pos < C
+    routed = _one_hot(gate_idx, E) * keep[..., None]                   # (B, S, K, E)
+    cap_oh = _one_hot(pos, C)                                          # (B, S, K, C), 0 past C
     dispatch = torch.einsum("bske,bskc->bsec", routed, cap_oh)
     combine = torch.einsum("bsk,bske,bskc->bsec", gate_vals, routed, cap_oh)
     return dispatch, combine
 
 
 def _experts(m: MoEConfig, p: MoE, x: torch.Tensor, probs: torch.Tensor,
-             seq_block: bool = False) -> torch.Tensor:
+             seq_block: bool = False, use_kernel: bool = True) -> torch.Tensor:
     """The experts' output; on a mesh the rank's experts, their partial sum
     all-reduced (with ``seq_block`` reduce-scattered over the sequence, and
     an unsplit part's block of the sequence kept)."""
@@ -146,7 +145,7 @@ def _experts(m: MoEConfig, p: MoE, x: torch.Tensor, probs: torch.Tensor,
     if tp is not None and tp.experts:
         # the combine weights below are split: their gradient is partial
         probs = sh.copy_to(probs)
-    dispatch, combine = dispatch_combine(m, probs)
+    dispatch, combine = dispatch_combine(m, probs, use_kernel)
     if tp is not None and tp.experts:
         dispatch = shard(dispatch, "batch", None, "expert", None)
         combine = shard(combine, "batch", None, "expert", None)
@@ -179,7 +178,8 @@ def _experts(m: MoEConfig, p: MoE, x: torch.Tensor, probs: torch.Tensor,
     return shard(y, "batch", None, None)
 
 
-def apply_moe(cfg: ArchConfig, p: MoE, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def apply_moe(cfg: ArchConfig, p: MoE, x: torch.Tensor,
+              use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss), as ``repro.models.moe.apply_moe``. In
     a sequence-parallel region ``x`` and ``y`` are the rank's block of the
     sequence: the router's queues read the whole sequence, so it is
@@ -190,5 +190,5 @@ def apply_moe(cfg: ArchConfig, p: MoE, x: torch.Tensor) -> tuple[torch.Tensor, t
         x = sh.all_gather(x, 1)
     with sh.sequence_parallel(False):
         logits, probs = router_probs(p, x)
-        y = _experts(cfg.moe, p, x, probs, seq_block)
+        y = _experts(cfg.moe, p, x, probs, seq_block, use_kernel)
         return y, router_aux(cfg.moe, logits, probs)

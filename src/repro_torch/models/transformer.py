@@ -96,11 +96,16 @@ class Transformer(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _mlp_apply(cfg: ArchConfig, p: Block, x):
+def _mlp_apply(cfg: ArchConfig, p: Block, x, use_kernel):
     """Returns (y, aux_loss)."""
     if cfg.moe is not None:
-        return moe.apply_moe(cfg, p.mlp, x)
+        return moe.apply_moe(cfg, p.mlp, x, use_kernel)
     return p.mlp(x), 0.0
+
+
+def _mlp(cfg: ArchConfig, p: Block, x, use_kernel):
+    """The FFN's output alone."""
+    return p.mlp(x, use_kernel) if cfg.moe is not None else p.mlp(x)
 
 
 def _layer_prefill(cfg: ArchConfig, p: Block, x, positions, window, use_kernel, with_aux):
@@ -114,7 +119,8 @@ def _layer_prefill(cfg: ArchConfig, p: Block, x, positions, window, use_kernel, 
         x = x + h
     with trace.scope("ffn"):
         h = rms_norm(x, p.ln2, cfg.norm_eps)
-        m, aux = _mlp_apply(cfg, p, h) if with_aux else (p.mlp(h), 0.0)
+        m, aux = (_mlp_apply(cfg, p, h, use_kernel) if with_aux
+                  else (_mlp(cfg, p, h, use_kernel), 0.0))
         return x + m, (k, v), aux
 
 
@@ -127,7 +133,7 @@ def _layer_decode(cfg: ArchConfig, p: Block, x, k_cache, v_cache, lengths, windo
         x = x + h
     # the FFN alone: repro computes the aux here and drops it (jit removes it)
     with trace.scope("ffn"):
-        return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
+        return x + _mlp(cfg, p, rms_norm(x, p.ln2, cfg.norm_eps), use_kernel)
 
 
 # ---------------------------------------------------------------------------

@@ -302,6 +302,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.matmul_probe import matmul
+    from repro_torch.kernels.moe_positions import moe_positions
     from repro_torch.kernels.ssd_chunk import ssd_chunked
 
     a = torch.ones(4, 4)
@@ -314,6 +315,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         flash_attention(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention(q[:, :, :1], q, q, torch.tensor([1], dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_positions(torch.zeros((1, 4, 2), dtype=torch.int64), 8)
 
 
 # ---------------------------------------------------------------------------

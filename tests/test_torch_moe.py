@@ -180,3 +180,131 @@ def test_batched_streams_do_not_change_tokens():
     solo = be.run_model(req, load=1)
     for load in (2, 3, 4):
         np.testing.assert_array_equal(solo, be.run_model(req, load=load))
+
+
+# ---------------------------------------------------------------------------
+# the queue positions: ops.moe_positions, the kernel on the card and the
+# cumsum form (kernels/ref.py) on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _jax_positions(jidx, E):
+    """The queue positions as ``repro.models.moe.apply_moe`` computes them
+    from the router's choices (before it clips them to the capacity)."""
+    B, S, K = jidx.shape
+    onehot = jax.nn.one_hot(jidx, E, dtype=jnp.float32)
+    pos_in_e = jnp.cumsum(onehot.reshape(B, S * K, E), axis=1).reshape(B, S, K, E)
+    pos_in_e = (pos_in_e - 1.0) * onehot
+    return np.asarray(jnp.sum(pos_in_e * onehot, axis=-1).astype(jnp.int32))
+
+
+def _counted(idx, E):
+    """Each pair's position by counting the earlier pairs of its row on its
+    expert, one at a time."""
+    B, S, K = idx.shape
+    flat = idx.reshape(B, S * K).tolist()
+    out = [[sum(e == v for e in row[:i]) if 0 <= v < E else 0 for i, v in enumerate(row)]
+           for row in flat]
+    return torch.tensor(out, dtype=torch.int32).reshape(B, S, K)
+
+
+@pytest.mark.parametrize("capacity", ["config", "no-drop"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_plain_positions_match_the_references_queue_positions(arch, capacity):
+    from repro_torch.kernels import ops
+
+    jcfg, tcfg = _configs(arch, capacity)
+    jp, tp = _moe_pair(jcfg, tcfg)
+    E, K = tcfg.moe.n_experts, tcfg.moe.top_k
+    x = _crowded_x(3, 24, tcfg.d_model, 1)
+    jprobs = jax.nn.softmax(jnp.asarray(x) @ jp["router"], axis=-1)
+    _, jidx = jax.lax.top_k(jprobs, K)
+    _, tidx = tmoe.gates(tcfg.moe, tmoe.router_probs(tp, torch.tensor(x))[1])
+    pos = ops.moe_positions(tidx, E)
+    np.testing.assert_array_equal(pos.numpy(), _jax_positions(jidx, E))
+    assert pos.dtype == torch.int32 and torch.equal(pos, _counted(tidx, E))
+
+
+def test_plain_positions_count_each_row_alone_and_clip_nothing():
+    from repro_torch.kernels import ref
+
+    idx = torch.tensor(np.random.RandomState(4).randint(0, 5, size=(3, 40, 3)))
+    pos = ref.moe_positions_ref(idx, 5)
+    assert torch.equal(pos, _counted(idx, 5))
+    for b in range(3):
+        assert torch.equal(pos[b:b + 1], ref.moe_positions_ref(idx[b:b + 1], 5))
+    one = torch.full((1, 50, 4), 2)  # every pair on one expert: one queue of 200
+    assert torch.equal(ref.moe_positions_ref(one, 5).flatten(), torch.arange(200, dtype=torch.int32))
+    idx[0, 3, 1], idx[1, 7, 0] = -1, 5  # outside the experts: position 0, counted nowhere
+    assert torch.equal(ref.moe_positions_ref(idx, 5), _counted(idx, 5))
+
+
+def test_the_dispatcher_sends_a_cpu_call_to_the_plain_version():
+    from repro_torch.kernels import ops, ref
+
+    idx = torch.tensor(np.random.RandomState(5).randint(0, 8, size=(2, 9, 2)))
+    ops.reset_counters()
+    want = ref.moe_positions_ref(idx, 8)
+    assert torch.equal(ops.moe_positions(idx, 8), want)
+    assert torch.equal(ops.moe_positions(idx, 8, use_kernel=False), want)
+    assert ops.plain == ops.counts(moe_positions=2)
+    assert ops.launches == ops.counts()
+    ops.reset_counters()
+
+
+def test_the_kernel_is_built_and_counted():
+    """``_build.counts()`` and the launch counters name the kernel; its
+    kernels carry no name that the benchmark's roofline readers look for
+    (``flash``, ``decode_kernel``, ``ssd_``)."""
+    import re
+
+    from repro_torch.kernels import _build, ops
+
+    assert "moe_positions" in _build.KERNELS and _build.counts()["moe_positions"] == 0
+    assert ops.launches["moe_positions"] == 0 and ops.plain["moe_positions"] == 0
+    src = (_build.CSRC / _build.SOURCES["moe_positions"]).read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", src)
+    assert sorted(names) == ["moe_count_kernel", "moe_rank_kernel"]
+    assert _build._SIGNATURES["moe_positions"][0] in src
+
+
+def _launched_as_on_card(monkeypatch):
+    """Patches the dispatcher so that the router's int64 indices count as on
+    the card (no other input it routes is int64) and the launcher counts a
+    launch and runs the plain form: the kernel's route, on the CPU."""
+    from repro_torch.kernels import _build, ops, ref
+
+    def launch(idx, E):
+        _build.check("moe_positions", 0)
+        return ref.moe_positions_ref(idx, E)
+
+    monkeypatch.setattr(ops, "_on_card", lambda t: t.dtype == torch.int64)
+    monkeypatch.setattr(ops, "_moe_positions", launch)
+
+
+def served_calls(m, params, S=11, T=3):
+    """The launches and plain calls of the queue positions in one forward,
+    one prefill and ``T`` decode steps of ``m``."""
+    from repro_torch.kernels import ops
+
+    tokens = torch.arange(1, S + 1, dtype=torch.int32)[None]
+    ops.reset_counters()
+    m.forward(params, {"tokens": tokens})
+    cache = m.init_cache(1, 32)
+    m.prefill(params, {"tokens": tokens}, cache)
+    m.decode_tokens(params, cache, tokens[:, -1:], T)
+    calls = ops.launches["moe_positions"], ops.plain["moe_positions"]
+    ops.reset_counters()
+    return calls
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_use_kernel_reaches_the_router_in_forward_prefill_and_decode(monkeypatch, use_kernels):
+    """The model's ``use_kernels`` reaches ``ops.moe_positions`` in forward,
+    prefill and decode: the kernel path launches once a layer a call (3
+    decode steps) and the plain path calls the plain version as often."""
+    _launched_as_on_card(monkeypatch)
+    cfg = get_smoke_config("granite-moe-1b-a400m")
+    m = build_model(cfg, device="cpu", use_kernels=use_kernels)
+    calls = cfg.n_layers * (2 + 3)
+    assert served_calls(m, m.init(0)) == ((calls, 0) if use_kernels else (0, calls))

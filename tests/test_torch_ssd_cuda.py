@@ -168,8 +168,8 @@ def test_one_zamba2_prefill_calls_the_kernel_once_a_layer():
 def test_one_granite4h_prefill_calls_the_kernel_once_a_mamba2_layer():
     """granite-4.0-h-small at its published widths and its first 6 layers
     (5 Mamba2, then attention): one prefill launches the SSD kernel at d_state
-    128 and heads of 64 once in each Mamba2 layer and K2 once, and calls no
-    plain scan."""
+    128 and heads of 64 once in each Mamba2 layer, K2 once and the MoE's
+    queue positions once a layer, and calls no plain version."""
     import json
     import sys
     from pathlib import Path
@@ -190,6 +190,6 @@ def test_one_granite4h_prefill_calls_the_kernel_once_a_mamba2_layer():
     with torch.no_grad():
         logits, _ = m.prefill(params, {"tokens": tokens}, m.init_cache(1, 1024))
         torch.cuda.synchronize()
-    assert ops.launches == _build.counts(ssd_chunked=5, flash_attention=1)
+    assert ops.launches == _build.counts(ssd_chunked=5, flash_attention=1, moe_positions=6)
     assert ops.plain == _build.counts()
     assert torch.isfinite(logits).all()
