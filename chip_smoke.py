@@ -1328,6 +1328,7 @@ def encdec_f32_kernel_vs_plain(cfg, frames, T, seed, ph="8c"):
     encoder output, the cross K/V and ``T`` teacher-forced decode steps'
     logits on the kernel path against the plain path, each within 1e-4 of
     the largest value; greedy tokens equal."""
+    from repro_torch.kernels import ops
     from repro_torch.models import encdec
     from repro_torch.models.model import build_model, greedy_token
 
@@ -1336,7 +1337,8 @@ def encdec_f32_kernel_vs_plain(cfg, frames, T, seed, ph="8c"):
     params = paths["kernel"].init(seed)
     enc, caches = {}, {}
     for name, m in paths.items():
-        enc[name] = encdec.encode(cfg32, params, frames, use_kernel=m.use_kernels)
+        with ops.plain_path(not m.use_kernels):
+            enc[name] = encdec.encode(cfg32, params, frames)
         caches[name] = m.init_cache(1, T)
         m.prefill(params, {"frames": frames}, caches[name])
 
@@ -1372,6 +1374,7 @@ def encdec_bf16_kernel_vs_plain(mk, params, frames, T, ph="8c"):
     :func:`bf16_kernel_vs_plain`, relative to its largest value: the kernel
     path within ``BF16_LOGIT_LIMIT`` of the plain path, or within twice the
     plain path's distance from f32 where that is larger."""
+    from repro_torch.kernels import ops
     from repro_torch.models import encdec
     from repro_torch.models.model import build_model, greedy_token
 
@@ -1381,7 +1384,8 @@ def encdec_bf16_kernel_vs_plain(mk, params, frames, T, ph="8c"):
     values = {"encoder": {}, "cross_k": {}, "cross_v": {}, "decode logits": {}}
     caches = {}
     for name, (m, w) in runs.items():
-        values["encoder"][name] = encdec.encode(m.cfg, w, frames, use_kernel=m.use_kernels).float()
+        with ops.plain_path(not m.use_kernels):
+            values["encoder"][name] = encdec.encode(m.cfg, w, frames).float()
         caches[name] = m.init_cache(1, T)
         m.prefill(w, {"frames": frames}, caches[name])
         for n in ("cross_k", "cross_v"):

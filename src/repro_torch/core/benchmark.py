@@ -40,7 +40,7 @@ class MatmulProbe:
     duration above timer noise. ``unit_speed_flops_per_ms`` anchors the
     simulated-time scale (0.167 vCPU at ~1 GFLOP/s ≈ the paper's 256 MB GCF
     tier). ``use_kernel=False`` runs the plain PyTorch product instead of
-    the kernel. ``device=None`` means the card.
+    the kernel (inside ``ops.plain_path``). ``device=None`` means the card.
     """
 
     n: int = 512
@@ -66,11 +66,9 @@ class MatmulProbe:
         a = torch.full((self.n, self.n), 0.5, dtype=torch.float32, device=self.device)
         b = torch.full((self.n, self.n), 0.25, dtype=torch.float32, device=self.device)
         out = a
-        for _ in range(self.repeats):
-            if self.use_kernel:
+        with ops.plain_path(not self.use_kernel):
+            for _ in range(self.repeats):
                 out = ops.matmul(out, b)
-            else:
-                out = out @ b
         return out
 
     def run(self) -> float:

@@ -1,10 +1,13 @@
-"""Dispatcher for the kernels.
+"""Dispatcher for the kernels, and the one place that chooses between a
+kernel and its plain version.
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the kernel's
-plain PyTorch version. ``use_kernel=False`` asks for the plain version on
-either device, as ``use_pallas=False`` does in ``repro.kernels.ops``: that is
-how a run compares the kernel path with the plain path on the card. A kernel
-that fails to build or launch raises; nothing falls back.
+plain PyTorch version. Inside ``with plain_path():`` every dispatcher takes
+the plain version on either device, as ``use_pallas=False`` does in
+``repro.kernels.ops``: that is how a run compares the kernel path with the
+plain path on the card. The models take no such option: ``Model`` opens the
+scope when it was built with ``use_kernels=False``. A kernel that fails to
+build or launch raises; nothing falls back.
 
 Unlike ``repro.kernels.ops`` nothing is padded: the kernels mask ragged
 edges themselves. ``launches`` and ``plain`` count kernel launches and
@@ -24,7 +27,8 @@ carry no gradient: a CUDA call goes to their kernel under autograd too.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Iterator, Optional
 
 import torch
 
@@ -46,8 +50,33 @@ reset_counters = _build.reset_counters
 counts = _build.counts
 
 
+_plain_only = False
+
+
+@contextlib.contextmanager
+def plain_path(on: bool = True) -> Iterator[None]:
+    """Inside the block every dispatcher takes the plain version (with
+    ``on`` False: the kernel on the card, also inside an outer block). Nests;
+    the value before it comes back on exit, an exception's too."""
+    global _plain_only
+    before, _plain_only = _plain_only, on
+    try:
+        yield
+    finally:
+        _plain_only = before
+
+
+def plain_only() -> bool:
+    """Whether an open :func:`plain_path` asks for the plain versions."""
+    return _plain_only
+
+
 def _on_card(t: torch.Tensor) -> bool:
     return t.is_cuda
+
+
+def _kernel(t: torch.Tensor) -> bool:
+    return not _plain_only and _on_card(t)
 
 
 def _wants_grad(*tensors: torch.Tensor) -> bool:
@@ -69,8 +98,8 @@ def prepare_capture(device: torch.device) -> None:
     _k3.prepare(device)
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
-    if use_kernel and _on_card(a):
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if _kernel(a):
         _no_grad_kernel("matmul", a, b)
         return _matmul(a, b)
     plain["matmul"] += 1
@@ -85,9 +114,8 @@ def flash_attention(
     causal: bool = True,
     sm_scale: Optional[float] = None,
     window: Optional[int] = None,
-    use_kernel: bool = True,
 ) -> torch.Tensor:
-    if use_kernel and _on_card(q):
+    if _kernel(q):
         if _wants_grad(q, k, v):
             return _k2.FlashAttention.apply(q, k, v, causal, sm_scale, window)
         return _k2.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale, window=window)
@@ -102,12 +130,11 @@ def decode_attention(
     lengths: torch.Tensor,
     *,
     sm_scale: Optional[float] = None,
-    use_kernel: bool = True,
     return_lse: bool = False,
 ):
     """The output, or with ``return_lse`` the pair (output, log-sum-exp
     (batch, q_heads) f32), counted as ``decode_attention_lse``."""
-    if use_kernel and _on_card(q):
+    if _kernel(q):
         _no_grad_kernel("decode_attention", q, k_cache, v_cache)
         return _decode_attention(q, k_cache, v_cache, lengths, sm_scale=sm_scale,
                                  return_lse=return_lse)
@@ -129,25 +156,23 @@ def ssd_chunked(
     *,
     chunk: int,
     h0: Optional[torch.Tensor] = None,
-    use_kernel: bool = True,
 ):
     """Mamba2's chunked SSD scan: (y (B, S, H, P) in x's dtype, h_final (B,
     H, N, P) f32). The kernel on the card without a gradient; the plain scan
-    (``models/ssm.py``) on the CPU, with ``use_kernel=False`` or under autograd."""
+    (``models/ssm.py``) on the CPU, in :func:`plain_path` or under autograd."""
     tensors = (x, dt, A, Bm, Cm, D) + (() if h0 is None else (h0,))
-    if use_kernel and _on_card(x) and not _wants_grad(*tensors):
+    if _kernel(x) and not _wants_grad(*tensors):
         return _ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk, h0=h0)
     plain["ssd_chunked"] += 1
     return _plain_ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk, h0=h0)
 
 
-def moe_positions(gate_idx: torch.Tensor, n_experts: int, *,
-                  use_kernel: bool = True) -> torch.Tensor:
+def moe_positions(gate_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
     """Each (token, choice) pair's 0-based position in its expert's queue in
     its own row, (B, S, K) int32 from ``gate_idx`` (B, S, K), unclipped. The
     kernel on the card; the cumsum form (``ref.moe_positions_ref``) on the
-    CPU or with ``use_kernel=False``."""
-    if use_kernel and _on_card(gate_idx):
+    CPU or in :func:`plain_path`."""
+    if _kernel(gate_idx):
         return _moe_positions(gate_idx, n_experts)
     plain["moe_positions"] += 1
     return ref.moe_positions_ref(gate_idx, n_experts)

@@ -201,7 +201,6 @@ def prefill_attention(
     use_rope: bool = True,
     cross_kv: Optional[tuple[torch.Tensor, torch.Tensor]] = None,  # (B, S_kv, K, hd)
     sm_scale: Optional[float] = None,
-    use_kernel: bool = True,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Self-attention over the sequence (causal, or bidirectional with
     ``causal=False``), or with ``cross_kv`` attention of the sequence's
@@ -222,13 +221,11 @@ def prefill_attention(
     vh = v.transpose(1, 2).contiguous()
     tp = p.tp
     if tp is None:
-        out = ops.flash_attention(qh, kh, vh, causal=causal, sm_scale=sm_scale, window=window,
-                                  use_kernel=use_kernel)
+        out = ops.flash_attention(qh, kh, vh, causal=causal, sm_scale=sm_scale, window=window)
     else:
         n_q = qh.shape[1]
         out = ops.flash_attention(qh, _kv_for_heads(kh, tp, n_q), _kv_for_heads(vh, tp, n_q),
-                                  causal=causal, sm_scale=sm_scale, window=window,
-                                  use_kernel=use_kernel)
+                                  causal=causal, sm_scale=sm_scale, window=window)
     y = torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), p.wo)
     y = shard(sh.leave(y, split), "batch", "seq", None)
     return y, (kh, vh)
@@ -247,7 +244,6 @@ def decode_attention_step(
     use_rope: bool = True,
     update_cache: bool = True,
     sm_scale: Optional[float] = None,
-    use_kernel: bool = True,
 ) -> torch.Tensor:
     """One decode step, with softmax scale ``sm_scale`` (None: 1/sqrt(hd)). Returns out (B,1,d); the new token's K and V rows are
     written into the caches in place.
@@ -268,12 +264,11 @@ def decode_attention_step(
                                                        and p.tp.cache_dim == 2):
         return _decode_length_sharded(p, x, k_cache, v_cache, lengths, rope_theta=rope_theta,
                                       eps=eps, window=window, use_rope=use_rope,
-                                      update_cache=update_cache, sm_scale=sm_scale,
-                                      use_kernel=use_kernel)
+                                      update_cache=update_cache, sm_scale=sm_scale)
     if p.tp is not None:
         return _decode_placed(p, x, k_cache, v_cache, lengths, rope_theta=rope_theta, eps=eps,
                               window=window, use_rope=use_rope, update_cache=update_cache,
-                              sm_scale=sm_scale, use_kernel=use_kernel)
+                              sm_scale=sm_scale)
     S = k_cache.shape[2]
     positions = lengths[:, None]  # (B, 1) absolute position of the new token
     if update_cache:
@@ -286,8 +281,7 @@ def decode_attention_step(
         q = _project_q(p, x, positions, rope_theta, eps, use_rope)
         valid = torch.clamp(lengths, max=S)
     qh = q.transpose(1, 2).contiguous()       # (B, H, 1, hd)
-    out = ops.decode_attention(qh, k_cache, v_cache, valid.to(torch.int32), sm_scale=sm_scale,
-                               use_kernel=use_kernel)
+    out = ops.decode_attention(qh, k_cache, v_cache, valid.to(torch.int32), sm_scale=sm_scale)
     return torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), p.wo)
 
 
@@ -312,7 +306,7 @@ def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
 
 
 def _decode_placed(p: Attention, x, k_cache, v_cache, lengths, *, rope_theta, eps, window,
-                   use_rope, update_cache, sm_scale, use_kernel) -> torch.Tensor:
+                   use_rope, update_cache, sm_scale) -> torch.Tensor:
     """A decode step on this rank's heads over a cache split over kv heads
     (the kernel on the rank's heads), over head_dim (partial scores
     all-reduced, in plain ops), or not split. The decode kernel needs whole
@@ -332,8 +326,7 @@ def _decode_placed(p: Attention, x, k_cache, v_cache, lengths, *, rope_theta, ep
         n_q = qh.shape[1]
         out = ops.decode_attention(qh, _kv_for_heads(k_cache, tp, n_q).contiguous(),
                                    _kv_for_heads(v_cache, tp, n_q).contiguous(),
-                                   valid.to(torch.int32), sm_scale=sm_scale,
-                                   use_kernel=use_kernel)
+                                   valid.to(torch.int32), sm_scale=sm_scale)
         return _out_proj(p, out)
     # head_dim split: every head's scores over this rank's columns, summed
     if qh.is_cuda:
@@ -353,8 +346,7 @@ def _decode_placed(p: Attention, x, k_cache, v_cache, lengths, *, rope_theta, ep
 
 
 def _decode_length_sharded(p: Attention, x, k_cache, v_cache, lengths, *, rope_theta, eps,
-                           window, use_rope, update_cache, sm_scale,
-                           use_kernel) -> torch.Tensor:
+                           window, use_rope, update_cache, sm_scale) -> torch.Tensor:
     """A decode step over a cache sharded along its length over the model
     axis: every head's query, this rank's slice of the keys."""
     tp = p.tp
@@ -370,8 +362,7 @@ def _decode_length_sharded(p: Attention, x, k_cache, v_cache, lengths, *, rope_t
         k_new, v_new = _full_heads(k_new, kv), _full_heads(v_new, kv)
     out = _sharded_flash_decode(_full_heads(qh, heads), k_cache, v_cache, k_new, v_new, slot,
                                 valid, sm_scale=(sm_scale if sm_scale is not None
-                                                 else 1.0 / math.sqrt(qh.shape[-1])),
-                                use_kernel=use_kernel)
+                                                 else 1.0 / math.sqrt(qh.shape[-1])))
     return _out_proj(p, _local_heads(out, tp))
 
 
@@ -385,19 +376,18 @@ def _sharded_flash_decode(
     valid: torch.Tensor,    # (B,) valid prefix length after the write
     *,
     sm_scale: float,
-    use_kernel: bool = True,
 ) -> torch.Tensor:
     """Flash-decode over a length-sharded cache: this rank's slice
     (:func:`flash_decode_slice`), merged across the model axis by
     all-reduces (:func:`merge_slices`). Returns (B, H, 1, hd) in q's dtype."""
     start = sh.coordinate(sh.MODEL_AXIS) * k_cache.shape[2]
     out, lse = flash_decode_slice(q, k_cache, v_cache, k_new, v_new, slot, valid, start,
-                                  sm_scale=sm_scale, use_kernel=use_kernel)
+                                  sm_scale=sm_scale)
     return merge_slices(out, lse, lambda t, op: sh.all_reduce(t.clone(), sh.MODEL_AXIS, op))
 
 
 def flash_decode_slice(q, k_cache, v_cache, k_new, v_new, slot, valid, start: int, *,
-                       sm_scale: float, use_kernel: bool = True):
+                       sm_scale: float):
     """The local half of the flash-decode, on the slice of the cache whose
     first row is global row ``start`` (shapes as :func:`_sharded_flash_decode`'s):
     writes a sequence's new K/V row if its global ``slot`` falls in the
@@ -416,7 +406,7 @@ def flash_decode_slice(q, k_cache, v_cache, k_new, v_new, slot, valid, start: in
                                                 new[:, :, 0].to(cache.dtype), old)
     n_valid = (valid - start).clamp(0, S_loc).to(torch.int32)
     return ops.decode_attention(q, k_cache, v_cache, n_valid, sm_scale=sm_scale,
-                                use_kernel=use_kernel, return_lse=True)
+                                return_lse=True)
 
 
 def merge_slices(out: torch.Tensor, lse: torch.Tensor, reduce) -> torch.Tensor:

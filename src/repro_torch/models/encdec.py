@@ -119,8 +119,8 @@ def _positions(B: int, S: int, device: torch.device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
-def encode(cfg: ArchConfig, params: EncDec, frames: torch.Tensor, *, remat: bool = True,
-           use_kernel: bool = True) -> torch.Tensor:
+def encode(cfg: ArchConfig, params: EncDec, frames: torch.Tensor, *,
+           remat: bool = True) -> torch.Tensor:
     """frames: (B, F, d_model), the stub frontend's output, cast to the
     model's dtype. Returns the normed encoder output (B, F, d_model)."""
     B, F, _ = frames.shape
@@ -136,9 +136,7 @@ def encode(cfg: ArchConfig, params: EncDec, frames: torch.Tensor, *, remat: bool
                 with sh.sequence_parallel(sp), sh.gathered(p):
                     h, _ = prefill_attention(
                         p.attn, rms_norm(x, p.ln1, cfg.norm_eps), positions,
-                        rope_theta=cfg.rope_theta, eps=cfg.norm_eps, causal=False,
-                        use_kernel=use_kernel,
-                    )
+                        rope_theta=cfg.rope_theta, eps=cfg.norm_eps, causal=False)
                     x = x + h
                     return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
 
@@ -160,8 +158,7 @@ def _cross_kv(p_attn: Attention, enc_out: torch.Tensor):
 
 
 def decode_train(cfg: ArchConfig, params: EncDec, tokens: torch.Tensor,
-                 enc_out: torch.Tensor, *, remat: bool = True,
-                 use_kernel: bool = True) -> torch.Tensor:
+                 enc_out: torch.Tensor, *, remat: bool = True) -> torch.Tensor:
     """The decoder over a whole token sequence (B, S), teacher-forced.
     Returns logits (B, S, V)."""
     B, S = tokens.shape
@@ -176,16 +173,12 @@ def decode_train(cfg: ArchConfig, params: EncDec, tokens: torch.Tensor,
                 with sh.sequence_parallel(sp), sh.gathered(p):
                     h, _ = prefill_attention(
                         p.self_attn, rms_norm(x, p.ln1, cfg.norm_eps), positions,
-                        rope_theta=cfg.rope_theta, eps=cfg.norm_eps, causal=True,
-                        use_kernel=use_kernel,
-                    )
+                        rope_theta=cfg.rope_theta, eps=cfg.norm_eps, causal=True)
                     x = x + h
                     h, _ = prefill_attention(
                         p.cross_attn, rms_norm(x, p.ln_x, cfg.norm_eps), positions,
                         rope_theta=cfg.rope_theta, eps=cfg.norm_eps, causal=False,
-                        cross_kv=_cross_kv(p.cross_attn, enc_out), use_rope=False,
-                        use_kernel=use_kernel,
-                    )
+                        cross_kv=_cross_kv(p.cross_attn, enc_out), use_rope=False)
                     x = x + h
                     return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
 
@@ -194,21 +187,19 @@ def decode_train(cfg: ArchConfig, params: EncDec, tokens: torch.Tensor,
         return unembed(unembed_input(x, params.tp), params.unembed)
 
 
-def forward(cfg: ArchConfig, params: EncDec, batch, *, remat: bool = True,
-            use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(cfg: ArchConfig, params: EncDec, batch, *,
+            remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """batch: {"frames": (B, F, d), "tokens": (B, S)}. Returns (logits (B,
     S, V), aux loss 0 as a 0-dim f32 tensor)."""
-    enc_out = encode(cfg, params, batch["frames"], remat=remat, use_kernel=use_kernel)
-    logits = decode_train(cfg, params, batch["tokens"], enc_out, remat=remat,
-                          use_kernel=use_kernel)
+    enc_out = encode(cfg, params, batch["frames"], remat=remat)
+    logits = decode_train(cfg, params, batch["tokens"], enc_out, remat=remat)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
-def loss_fn(cfg: ArchConfig, params: EncDec, batch, *, remat: bool = True,
-            use_kernel: bool = True):
+def loss_fn(cfg: ArchConfig, params: EncDec, batch, *, remat: bool = True):
     """batch: {"frames", "tokens", "labels"}. Returns (ce + aux, {"ce",
     "nll", "aux"}), 0-dim f32 tensors."""
-    logits, aux = forward(cfg, params, batch, remat=remat, use_kernel=use_kernel)
+    logits, aux = forward(cfg, params, batch, remat=remat)
     ce, nll = cross_entropy(logits, batch["labels"], tp=params.tp)
     return ce + aux, {"ce": ce, "nll": nll, "aux": aux}
 
@@ -228,13 +219,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
     }
 
 
-def prefill(cfg: ArchConfig, params: EncDec, frames: torch.Tensor, cache, *,
-            use_kernel: bool = True):
+def prefill(cfg: ArchConfig, params: EncDec, frames: torch.Tensor, cache):
     """Encode ``frames`` and store each decoder layer's cross K/V in the
     cache, in place. The decoder starts empty: ``lengths`` is set to 0, what
     ``repro``'s prefill leaves in a fresh cache (a reused cache may hold an
     earlier request's length). Returns (None, cache)."""
-    enc_out = encode(cfg, params, frames, remat=False, use_kernel=use_kernel)
+    enc_out = encode(cfg, params, frames, remat=False)
     for i, p in enumerate(params.decoder):
         k, v = _cross_kv(p.cross_attn, enc_out)
         if p.cross_attn.tp is None:
@@ -247,8 +237,7 @@ def prefill(cfg: ArchConfig, params: EncDec, frames: torch.Tensor, cache, *,
     return None, cache
 
 
-def decode_step(cfg: ArchConfig, params: EncDec, cache, tokens: torch.Tensor, *,
-                use_kernel: bool = True):
+def decode_step(cfg: ArchConfig, params: EncDec, cache, tokens: torch.Tensor):
     """One greedy decode step. tokens: (B, 1) int32, the current token.
     Returns (logits (B, 1, V), cache updated in place)."""
     B = tokens.shape[0]
@@ -262,14 +251,12 @@ def decode_step(cfg: ArchConfig, params: EncDec, cache, tokens: torch.Tensor, *,
     for i, p in enumerate(params.decoder):
         h = decode_attention_step(
             p.self_attn, rms_norm(x, p.ln1, cfg.norm_eps), cache["k"][i], cache["v"][i],
-            lengths, rope_theta=cfg.rope_theta, eps=cfg.norm_eps, use_kernel=use_kernel,
-        )
+            lengths, rope_theta=cfg.rope_theta, eps=cfg.norm_eps)
         x = x + h
         h = decode_attention_step(
             p.cross_attn, rms_norm(x, p.ln_x, cfg.norm_eps), cache["cross_k"][i],
             cache["cross_v"][i], all_frames, rope_theta=cfg.rope_theta, eps=cfg.norm_eps,
-            use_rope=False, update_cache=False, use_kernel=use_kernel,
-        )
+            use_rope=False, update_cache=False)
         x = x + h
         x = x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
     x = rms_norm(x, params.final_norm, cfg.norm_eps)

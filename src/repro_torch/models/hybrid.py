@@ -232,15 +232,14 @@ def _mamba_proj(cfg: ArchConfig, p: MambaBlock, x):
     return torch.split(u, [d_inner, d_inner, N, N, H], dim=-1)  # xs, z, Bm, Cm, dt
 
 
-def mamba_mixer(cfg: ArchConfig, p: MambaBlock, x, use_kernel: bool = True):
+def mamba_mixer(cfg: ArchConfig, p: MambaBlock, x):
     """x: (B,S,d), from a zero state. Returns (the mixer's output, (h
     (B,H,N,P), conv ctx)), the state of the rank's heads and channels on a
     split block."""
     d_inner, H, P, N = _dims(cfg)
     B, S, _ = x.shape
     xs, z, Bm, Cm, dt, A, D, new_ctx = _mamba_mix(cfg, p, x, None)
-    y, h = ops.ssd_chunked(xs.reshape(B, S, -1, P), dt, A, Bm, Cm, D, chunk=cfg.ssm.chunk,
-                           use_kernel=use_kernel)
+    y, h = ops.ssd_chunked(xs.reshape(B, S, -1, P), dt, A, Bm, Cm, D, chunk=cfg.ssm.chunk)
     return _mamba_out(cfg, p, y.reshape(B, S, -1), z), (h, new_ctx)
 
 
@@ -255,10 +254,10 @@ def mamba_mixer_step(cfg: ArchConfig, p: MambaBlock, x, state):
     return _mamba_out(cfg, p, y.reshape(B, 1, -1), z), (h, new_ctx)
 
 
-def mamba_block(cfg: ArchConfig, p: MambaBlock, x, use_kernel: bool = True):
+def mamba_block(cfg: ArchConfig, p: MambaBlock, x):
     """x: (B,S,d), from a zero state. Returns (x + the mixer's output, (h
     (B,H,N,P), conv ctx))."""
-    y, state = mamba_mixer(cfg, p, x, use_kernel)
+    y, state = mamba_mixer(cfg, p, x)
     return x + y, state
 
 
@@ -297,12 +296,11 @@ def _groups(cfg: ArchConfig):
         start += size
 
 
-def _shared_attn_prefill(cfg: ArchConfig, p: SharedBlock, x, positions, use_kernel):
+def _shared_attn_prefill(cfg: ArchConfig, p: SharedBlock, x, positions):
     h, (k, v) = prefill_attention(
         p.attn, rms_norm(x, p.ln1, cfg.norm_eps), positions,
         rope_theta=cfg.rope_theta, eps=cfg.norm_eps, causal=True,
-        window=cfg.sliding_window, use_kernel=use_kernel,
-    )
+        window=cfg.sliding_window)
     x = x + h
     return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps)), (k, v)
 
@@ -318,8 +316,8 @@ def _logits(cfg: ArchConfig, params: Zamba2, x):
     return unembed(unembed_input(x, params.tp), params.unembed)
 
 
-def forward(cfg: ArchConfig, params: Zamba2, tokens: torch.Tensor, *, remat: bool = True,
-            use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(cfg: ArchConfig, params: Zamba2, tokens: torch.Tensor, *,
+            remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Full forward pass over ``tokens`` (B, S). Returns (logits (B, S, V),
     aux loss 0 as a 0-dim f32 tensor). ``remat`` recomputes each Mamba2
     block in the backward. FSDP parameters are gathered for the block that
@@ -331,22 +329,20 @@ def forward(cfg: ArchConfig, params: Zamba2, tokens: torch.Tensor, *, remat: boo
 
                 def body(x, p=params.mamba[li]):
                     with sh.gathered(p):
-                        return mamba_block(cfg, p, x, use_kernel)[0]
+                        return mamba_block(cfg, p, x)[0]
 
                 x = _remat(body, x) if remat else body(x)
             if attn:
                 with sh.gathered(params.shared_attn):
-                    x, _ = _shared_attn_prefill(cfg, params.shared_attn, x, positions,
-                                                use_kernel)
+                    x, _ = _shared_attn_prefill(cfg, params.shared_attn, x, positions)
         logits = _logits(cfg, params, x)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
-def loss_fn(cfg: ArchConfig, params: Zamba2, batch, *, remat: bool = True,
-            use_kernel: bool = True):
+def loss_fn(cfg: ArchConfig, params: Zamba2, batch, *, remat: bool = True):
     """batch: {"tokens", "labels"} (B, S). Returns (ce + aux, {"ce", "nll",
     "aux"}), 0-dim f32 tensors."""
-    logits, aux = forward(cfg, params, batch["tokens"], remat=remat, use_kernel=use_kernel)
+    logits, aux = forward(cfg, params, batch["tokens"], remat=remat)
     ce, nll = cross_entropy(logits, batch["labels"], tp=params.tp)
     return ce + aux, {"ce": ce, "nll": nll, "aux": aux}
 
@@ -372,8 +368,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
     return cache
 
 
-def prefill(cfg: ArchConfig, params: Zamba2, tokens: torch.Tensor, cache, *,
-            use_kernel: bool = True):
+def prefill(cfg: ArchConfig, params: Zamba2, tokens: torch.Tensor, cache):
     """Run the prompt from a zero state, writing each layer's SSD state and
     conv context and each application's K/V rows into the cache in place.
     Returns (last-token logits (B, 1, V), cache). Without a sliding window a
@@ -390,13 +385,12 @@ def prefill(cfg: ArchConfig, params: Zamba2, tokens: torch.Tensor, cache, *,
     for gi, layers, attn in _groups(cfg):
         for li in layers:
             with trace.scope("mamba2"):
-                x, (h, ctx) = mamba_block(cfg, params.mamba[li], x, use_kernel)
+                x, (h, ctx) = mamba_block(cfg, params.mamba[li], x)
                 cache["h"][li].copy_(h)
                 cache["conv"][li].copy_(ctx)
         if attn:
             with trace.scope("shared_block"):
-                x, (k, v) = _shared_attn_prefill(cfg, params.shared_attn, x, positions,
-                                                 use_kernel)
+                x, (k, v) = _shared_attn_prefill(cfg, params.shared_attn, x, positions)
                 if S > S_c:
                     # keep the last `window` positions; ring alignment: slot = pos % window
                     shift = (S - S_c) % S_c
@@ -410,8 +404,7 @@ def prefill(cfg: ArchConfig, params: Zamba2, tokens: torch.Tensor, cache, *,
     return logits, cache
 
 
-def decode_step(cfg: ArchConfig, params: Zamba2, cache, tokens: torch.Tensor, *,
-                use_kernel: bool = True):
+def decode_step(cfg: ArchConfig, params: Zamba2, cache, tokens: torch.Tensor):
     """One greedy decode step. tokens: (B, 1) int32, the current token.
     Returns (logits (B, 1, V), cache updated in place: each new state is
     computed, then copied in)."""
@@ -430,8 +423,7 @@ def decode_step(cfg: ArchConfig, params: Zamba2, cache, tokens: torch.Tensor, *,
                 h_att = decode_attention_step(
                     p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cache["attn_k"][gi],
                     cache["attn_v"][gi], lengths, rope_theta=cfg.rope_theta, eps=cfg.norm_eps,
-                    window=cfg.sliding_window, use_kernel=use_kernel,
-                )
+                    window=cfg.sliding_window)
                 x = x + h_att
                 x = x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
     with trace.scope("logits"):

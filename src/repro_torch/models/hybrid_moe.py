@@ -126,10 +126,9 @@ def _attend_kw(cfg: ArchConfig) -> dict:
                 sm_scale=cfg.attention_multiplier or None)
 
 
-def _ffn(cfg: ArchConfig, p: Layer, x: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+def _ffn(cfg: ArchConfig, p: Layer, x: torch.Tensor) -> torch.Tensor:
     with trace.scope("ffn"):
-        return x + _scaled(p.mlp(rms_norm(x, p.ln2, cfg.norm_eps), use_kernel),
-                           cfg.residual_multiplier)
+        return x + _scaled(p.mlp(rms_norm(x, p.ln2, cfg.norm_eps)), cfg.residual_multiplier)
 
 
 def _embed(cfg: ArchConfig, params: GraniteHybrid, tokens: torch.Tensor) -> torch.Tensor:
@@ -147,17 +146,17 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
 
 
-def _mixer_prefill(cfg: ArchConfig, p: Layer, x, positions, use_kernel: bool):
+def _mixer_prefill(cfg: ArchConfig, p: Layer, x, positions):
     """(the mixer's output over the sequence, its state: (h, conv ctx) or
     (k, v))."""
     if p.kind == "mamba":
-        return mamba_mixer(cfg, p.mamba, x, use_kernel)
+        return mamba_mixer(cfg, p.mamba, x)
     return prefill_attention(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), positions, causal=True,
-                             use_kernel=use_kernel, **_attend_kw(cfg))
+                             **_attend_kw(cfg))
 
 
 def forward(cfg: ArchConfig, params: GraniteHybrid, tokens: torch.Tensor, *,
-            remat: bool = True, use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+            remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Full forward pass over ``tokens`` (B, S). Returns (logits (B, S, V),
     the routers' summed aux loss as a 0-dim f32 tensor). ``remat``
     recomputes each layer in the backward."""
@@ -167,10 +166,8 @@ def forward(cfg: ArchConfig, params: GraniteHybrid, tokens: torch.Tensor, *,
     for p in params.layers:
 
         def body(x, p=p):
-            x = x + _scaled(_mixer_prefill(cfg, p, x, positions, use_kernel)[0],
-                            cfg.residual_multiplier)
-            y, layer_aux = moe.apply_moe(cfg, p.mlp, rms_norm(x, p.ln2, cfg.norm_eps),
-                                         use_kernel)
+            x = x + _scaled(_mixer_prefill(cfg, p, x, positions)[0], cfg.residual_multiplier)
+            y, layer_aux = moe.apply_moe(cfg, p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
             return x + _scaled(y, cfg.residual_multiplier), layer_aux
 
         x, layer_aux = _remat(body, x) if remat else body(x)
@@ -178,11 +175,10 @@ def forward(cfg: ArchConfig, params: GraniteHybrid, tokens: torch.Tensor, *,
     return _logits(cfg, params, x), aux
 
 
-def loss_fn(cfg: ArchConfig, params: GraniteHybrid, batch, *, remat: bool = True,
-            use_kernel: bool = True):
+def loss_fn(cfg: ArchConfig, params: GraniteHybrid, batch, *, remat: bool = True):
     """batch: {"tokens", "labels"} (B, S). Returns (ce + aux, {"ce", "nll",
     "aux"}), 0-dim f32 tensors."""
-    logits, aux = forward(cfg, params, batch["tokens"], remat=remat, use_kernel=use_kernel)
+    logits, aux = forward(cfg, params, batch["tokens"], remat=remat)
     ce, nll = cross_entropy(logits, batch["labels"])
     return ce + aux, {"ce": ce, "nll": nll, "aux": aux}
 
@@ -222,8 +218,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
     }
 
 
-def prefill(cfg: ArchConfig, params: GraniteHybrid, tokens: torch.Tensor, cache, *,
-            use_kernel: bool = True):
+def prefill(cfg: ArchConfig, params: GraniteHybrid, tokens: torch.Tensor, cache):
     """Run the prompt from a zero state, writing each Mamba2 layer's SSD
     state and conv context and each attention layer's K/V rows into the
     cache in place. Returns (last-token logits (B, 1, V), cache). A prompt
@@ -236,7 +231,7 @@ def prefill(cfg: ArchConfig, params: GraniteHybrid, tokens: torch.Tensor, cache,
     positions = _positions(tokens)
     for p, i in zip(params.layers, _slots(cfg)):
         with trace.scope("mamba2" if p.kind == "mamba" else "attention"):
-            y, state = _mixer_prefill(cfg, p, x, positions, use_kernel)
+            y, state = _mixer_prefill(cfg, p, x, positions)
             if p.kind == "mamba":
                 cache["h"][i].copy_(state[0])
                 cache["conv"][i].copy_(state[1])
@@ -244,15 +239,14 @@ def prefill(cfg: ArchConfig, params: GraniteHybrid, tokens: torch.Tensor, cache,
                 k, v = state
                 store_prefill_kv(cache["attn_k"][i], k, None)
                 store_prefill_kv(cache["attn_v"][i], v, None)
-        x = _ffn(cfg, p, x + _scaled(y, cfg.residual_multiplier), use_kernel)
+        x = _ffn(cfg, p, x + _scaled(y, cfg.residual_multiplier))
     with trace.scope("logits"):
         logits = _logits(cfg, params, x[:, -1:])
     cache["lengths"].fill_(S)
     return logits, cache
 
 
-def decode_step(cfg: ArchConfig, params: GraniteHybrid, cache, tokens: torch.Tensor, *,
-                use_kernel: bool = True):
+def decode_step(cfg: ArchConfig, params: GraniteHybrid, cache, tokens: torch.Tensor):
     """One greedy decode step. tokens: (B, 1) int32, the current token.
     Returns (logits (B, 1, V), cache updated in place)."""
     x = _embed(cfg, params, tokens)
@@ -268,8 +262,8 @@ def decode_step(cfg: ArchConfig, params: GraniteHybrid, cache, tokens: torch.Ten
             with trace.scope("attention"):
                 y = decode_attention_step(p.attn, rms_norm(x, p.ln1, cfg.norm_eps),
                                           cache["attn_k"][i], cache["attn_v"][i], lengths,
-                                          use_kernel=use_kernel, **_attend_kw(cfg))
-        x = _ffn(cfg, p, x + _scaled(y, r), use_kernel)
+                                          **_attend_kw(cfg))
+        x = _ffn(cfg, p, x + _scaled(y, r))
     with trace.scope("logits"):
         logits = _logits(cfg, params, x)
     lengths.add_(1)

@@ -6,6 +6,7 @@ On a mesh a placed SwiGLU holds this rank's ff columns (``w_gate``,
 embedding holds a block of vocab rows (:func:`embed`)."""
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -14,6 +15,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..distributed import sharding as sh
+from ..kernels import ops
 
 
 def normal_init(shape, scale: float, dtype: torch.dtype, generator: torch.Generator) -> torch.Tensor:
@@ -119,11 +121,15 @@ def remat(fn, *args):
     kept (``jax.checkpoint``'s counterpart): non-reentrant
     ``torch.utils.checkpoint``. Without grad mode nothing is kept anyway, and
     ``fn`` simply runs. Nothing in the models draws random numbers, so the
-    RNG state is not stashed."""
+    RNG state is not stashed. The recompute runs in ``backward()``, after
+    the model's ``ops.plain_path`` has closed: it reopens the choice of the
+    forward, so it takes the same kernels or plain versions."""
     if not torch.is_grad_enabled():
         return fn(*args)
-    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
-                                             preserve_rng_state=False)
+    plain = ops.plain_only()
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), ops.plain_path(plain)))
 
 
 def unembed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

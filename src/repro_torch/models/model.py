@@ -46,8 +46,13 @@ depends only on
 steps ``< t``, running extra (bucket-padding) steps never changes the first
 ``n`` tokens.
 
-``use_kernels=False`` routes attention to the plain versions on the card
-too; that is how a run holds the kernel path against the plain path.
+``use_kernels=False`` routes every kernel to its plain version on the card
+too; that is how a run holds the kernel path against the plain path. The
+choice lives in :mod:`repro_torch.kernels.ops` alone: the family functions
+take no such option, and each method here runs inside
+``ops.plain_path(not use_kernels)``, so a CUDA graph captured inside one
+records the path the model asked for. ``layers.remat`` recomputes a layer in
+the backward under the choice of its forward.
 
 ``loss`` and ``forward`` run in the caller's grad mode (the trainer turns the
 parameters' gradients on: they are built frozen); ``remat`` recomputes each
@@ -59,6 +64,7 @@ model that has trained serves, and is captured, without recording autograd.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Union
 
 import torch
@@ -67,6 +73,7 @@ from .. import trace
 from .._device import resolve_device
 from ..configs.base import ArchConfig
 from ..distributed import sharding as sh
+from ..kernels import ops
 from . import attention, encdec, hybrid, hybrid_moe, transformer, xlstm
 from .attention import Attention
 from .graphs import GraphCache
@@ -94,6 +101,16 @@ def cache_len(cache: dict[str, torch.Tensor]) -> Optional[int]:
     return None
 
 
+def _on_path(method):
+    """``method`` run under the model's choice between the kernels and their
+    plain versions."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with ops.plain_path(not self.use_kernels):
+            return method(self, *args, **kwargs)
+    return run
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
@@ -119,30 +136,30 @@ class Model:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return _FAMILIES[self.cfg.family][1](self.cfg, self.device).init(gen)
 
+    @_on_path
     def loss(self, params, batch, *, remat: bool = True) -> tuple[torch.Tensor, dict]:
         """(ce + aux, {"ce", "nll", "aux"}), as ``repro``'s ``Model.loss``:
         batch ``{"tokens", "labels"}`` (encdec: and ``"frames"``)."""
-        return self._impl.loss_fn(self.cfg, params, batch, remat=remat,
-                                  use_kernel=self.use_kernels)
+        return self._impl.loss_fn(self.cfg, params, batch, remat=remat)
 
+    @_on_path
     def forward(self, params, batch, *, remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
         """(logits (B, S, V), aux loss), as ``repro``'s ``Model.forward``."""
         inputs = batch if self._impl is encdec else batch["tokens"]
-        return self._impl.forward(self.cfg, params, inputs, remat=remat,
-                                  use_kernel=self.use_kernels)
+        return self._impl.forward(self.cfg, params, inputs, remat=remat)
 
     def init_cache(self, batch_size: int, max_len: int):
         return self._impl.init_cache(self.cfg, batch_size, max_len, device=self.device)
 
     @torch.no_grad()
+    @_on_path
     def prefill(self, params, batch, cache):
-        return self._impl.prefill(self.cfg, params, batch[self._input], cache,
-                                  use_kernel=self.use_kernels)
+        return self._impl.prefill(self.cfg, params, batch[self._input], cache)
 
     @torch.no_grad()
+    @_on_path
     def decode_step(self, params, cache, tokens):
-        return self._impl.decode_step(self.cfg, params, cache, tokens,
-                                      use_kernel=self.use_kernels)
+        return self._impl.decode_step(self.cfg, params, cache, tokens)
 
     @property
     def graph_stats(self) -> dict[str, int]:
@@ -210,6 +227,7 @@ class Model:
         return min(max_len, window) if window is not None else max_len
 
     @torch.no_grad()
+    @_on_path
     def prefill_jit(self, params, batch, cache):
         """``prefill``, as one CUDA graph per (B, S, cache_len) on the card;
         for encdec per (B, frames, cache_len), whose graph returns None."""
@@ -227,6 +245,7 @@ class Model:
         return self.graphs.run(key, params, inputs, body, cache, static), cache
 
     @torch.no_grad()
+    @_on_path
     def decode_tokens(self, params, cache, tokens: torch.Tensor, n_steps: int):
         """Greedy-decode ``n_steps`` tokens from ``tokens`` (B, 1), as one
         CUDA graph per (B, cache_len, n_steps) on the card. Returns ((B,

@@ -83,10 +83,10 @@ class MoE(nn.Module):
         for w, scale in ws:
             w.copy_(normal_init(tuple(w.shape), scale, w.dtype, generator))
 
-    def forward(self, x: torch.Tensor, use_kernel: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         """The FFN's output alone: what a decode step keeps of
         :func:`apply_moe` (``repro`` computes the aux there and drops it)."""
-        return _experts(self.m, self, x, router_probs(self, x)[1], use_kernel=use_kernel)
+        return _experts(self.m, self, x, router_probs(self, x)[1])
 
 
 def router_probs(p: MoE, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -119,15 +119,14 @@ def gates(m: MoEConfig, probs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor
     return gate_vals, gate_idx
 
 
-def dispatch_combine(m: MoEConfig, probs: torch.Tensor,
-                     use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+def dispatch_combine(m: MoEConfig, probs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The (B, S, E, C) f32 dispatch mask (1 where token s takes slot c of
     expert e) and combine weights (its gate value there)."""
     _, S, E = probs.shape
     C = _capacity(S, m.top_k, E, m.capacity_factor)
     gate_vals, gate_idx = gates(m, probs)
     # position of each (token, k) within its expert queue, per row
-    pos = ops.moe_positions(gate_idx, E, use_kernel=use_kernel)       # (B, S, K) int32
+    pos = ops.moe_positions(gate_idx, E)       # (B, S, K) int32
     keep = pos < C
     routed = _one_hot(gate_idx, E) * keep[..., None]                   # (B, S, K, E)
     cap_oh = _one_hot(pos, C)                                          # (B, S, K, C), 0 past C
@@ -137,7 +136,7 @@ def dispatch_combine(m: MoEConfig, probs: torch.Tensor,
 
 
 def _experts(m: MoEConfig, p: MoE, x: torch.Tensor, probs: torch.Tensor,
-             seq_block: bool = False, use_kernel: bool = True) -> torch.Tensor:
+             seq_block: bool = False) -> torch.Tensor:
     """The experts' output; on a mesh the rank's experts, their partial sum
     all-reduced (with ``seq_block`` reduce-scattered over the sequence, and
     an unsplit part's block of the sequence kept)."""
@@ -145,7 +144,7 @@ def _experts(m: MoEConfig, p: MoE, x: torch.Tensor, probs: torch.Tensor,
     if tp is not None and tp.experts:
         # the combine weights below are split: their gradient is partial
         probs = sh.copy_to(probs)
-    dispatch, combine = dispatch_combine(m, probs, use_kernel)
+    dispatch, combine = dispatch_combine(m, probs)
     if tp is not None and tp.experts:
         dispatch = shard(dispatch, "batch", None, "expert", None)
         combine = shard(combine, "batch", None, "expert", None)
@@ -178,8 +177,7 @@ def _experts(m: MoEConfig, p: MoE, x: torch.Tensor, probs: torch.Tensor,
     return shard(y, "batch", None, None)
 
 
-def apply_moe(cfg: ArchConfig, p: MoE, x: torch.Tensor,
-              use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+def apply_moe(cfg: ArchConfig, p: MoE, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss), as ``repro.models.moe.apply_moe``. In
     a sequence-parallel region ``x`` and ``y`` are the rank's block of the
     sequence: the router's queues read the whole sequence, so it is
@@ -190,5 +188,5 @@ def apply_moe(cfg: ArchConfig, p: MoE, x: torch.Tensor,
         x = sh.all_gather(x, 1)
     with sh.sequence_parallel(False):
         logits, probs = router_probs(p, x)
-        y = _experts(cfg.moe, p, x, probs, seq_block, use_kernel)
+        y = _experts(cfg.moe, p, x, probs, seq_block)
         return y, router_aux(cfg.moe, logits, probs)

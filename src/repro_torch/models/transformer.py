@@ -96,44 +96,36 @@ class Transformer(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _mlp_apply(cfg: ArchConfig, p: Block, x, use_kernel):
+def _mlp_apply(cfg: ArchConfig, p: Block, x):
     """Returns (y, aux_loss)."""
     if cfg.moe is not None:
-        return moe.apply_moe(cfg, p.mlp, x, use_kernel)
+        return moe.apply_moe(cfg, p.mlp, x)
     return p.mlp(x), 0.0
 
 
-def _mlp(cfg: ArchConfig, p: Block, x, use_kernel):
-    """The FFN's output alone."""
-    return p.mlp(x, use_kernel) if cfg.moe is not None else p.mlp(x)
-
-
-def _layer_prefill(cfg: ArchConfig, p: Block, x, positions, window, use_kernel, with_aux):
+def _layer_prefill(cfg: ArchConfig, p: Block, x, positions, window, with_aux):
     """``with_aux=False`` skips the aux loss that a caller would drop (in
     ``repro``, jit removes it as dead code) and returns 0.0 for it."""
     with trace.scope("attention"):
         h, (k, v) = prefill_attention(
             p.attn, rms_norm(x, p.ln1, cfg.norm_eps), positions,
-            rope_theta=cfg.rope_theta, eps=cfg.norm_eps, window=window, use_kernel=use_kernel,
-        )
+            rope_theta=cfg.rope_theta, eps=cfg.norm_eps, window=window)
         x = x + h
     with trace.scope("ffn"):
         h = rms_norm(x, p.ln2, cfg.norm_eps)
-        m, aux = (_mlp_apply(cfg, p, h, use_kernel) if with_aux
-                  else (_mlp(cfg, p, h, use_kernel), 0.0))
+        m, aux = _mlp_apply(cfg, p, h) if with_aux else (p.mlp(h), 0.0)
         return x + m, (k, v), aux
 
 
-def _layer_decode(cfg: ArchConfig, p: Block, x, k_cache, v_cache, lengths, window, use_kernel):
+def _layer_decode(cfg: ArchConfig, p: Block, x, k_cache, v_cache, lengths, window):
     with trace.scope("attention"):
         h = decode_attention_step(
             p.attn, rms_norm(x, p.ln1, cfg.norm_eps), k_cache, v_cache, lengths,
-            rope_theta=cfg.rope_theta, eps=cfg.norm_eps, window=window, use_kernel=use_kernel,
-        )
+            rope_theta=cfg.rope_theta, eps=cfg.norm_eps, window=window)
         x = x + h
     # the FFN alone: repro computes the aux here and drops it (jit removes it)
     with trace.scope("ffn"):
-        return x + _mlp(cfg, p, rms_norm(x, p.ln2, cfg.norm_eps), use_kernel)
+        return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps))
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +143,7 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 
 def forward(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, *,
-            remat: bool = True, use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+            remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Full forward pass over ``tokens`` (B, S). Returns (logits (B, S, V),
     the layers' summed aux loss as a 0-dim f32 tensor). ``remat``
     recomputes each layer in the backward. On a mesh whose rules map
@@ -169,8 +161,7 @@ def forward(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, *,
 
             def body(x, p=p):
                 with sh.sequence_parallel(sp), sh.gathered(p):
-                    y, _, layer_aux = _layer_prefill(cfg, p, x, positions, window, use_kernel,
-                                                     True)
+                    y, _, layer_aux = _layer_prefill(cfg, p, x, positions, window, True)
                 return y, layer_aux
 
             x, layer_aux = _remat(body, x) if remat else body(x)
@@ -179,11 +170,10 @@ def forward(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, *,
         return unembed(unembed_input(x, params.tp), params.out_proj()), aux
 
 
-def loss_fn(cfg: ArchConfig, params: Transformer, batch, *, remat: bool = True,
-            use_kernel: bool = True):
+def loss_fn(cfg: ArchConfig, params: Transformer, batch, *, remat: bool = True):
     """batch: {"tokens", "labels"} (B, S). Returns (ce + aux, {"ce", "nll",
     "aux"}), 0-dim f32 tensors."""
-    logits, aux = forward(cfg, params, batch["tokens"], remat=remat, use_kernel=use_kernel)
+    logits, aux = forward(cfg, params, batch["tokens"], remat=remat)
     ce, nll = cross_entropy(logits, batch["labels"], tp=params.tp)
     return ce + aux, {"ce": ce, "nll": nll, "aux": aux}
 
@@ -201,8 +191,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
     }
 
 
-def prefill(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, cache, *,
-            use_kernel: bool = True):
+def prefill(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, cache):
     """Run the prompt through the stack, filling the cache in place. Returns
     (last-token logits (B, 1, V), cache). Without a sliding window a prompt
     longer than the cache raises ValueError."""
@@ -223,7 +212,7 @@ def prefill(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, cache, *
         x = _embed(params, tokens)
         positions = _positions(tokens)
         for i, p in enumerate(params.layers):
-            x, (k, v), _ = _layer_prefill(cfg, p, x, positions, window, use_kernel, False)
+            x, (k, v), _ = _layer_prefill(cfg, p, x, positions, window, False)
             with trace.scope("attention"):
                 if window is not None and S > S_c:
                     # keep the last `window` positions; ring alignment: slot = pos % window
@@ -241,15 +230,14 @@ def prefill(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor, cache, *
     return logits, cache
 
 
-def decode_step(cfg: ArchConfig, params: Transformer, cache, tokens: torch.Tensor, *,
-                use_kernel: bool = True):
+def decode_step(cfg: ArchConfig, params: Transformer, cache, tokens: torch.Tensor):
     """One greedy decode step. tokens: (B, 1) int32 — the current token.
     Returns (logits (B,1,V), cache updated in place)."""
     window = cfg.sliding_window
     x = _embed(params, tokens)
     lengths = cache["lengths"]
     for i, p in enumerate(params.layers):
-        x = _layer_decode(cfg, p, x, cache["k"][i], cache["v"][i], lengths, window, use_kernel)
+        x = _layer_decode(cfg, p, x, cache["k"][i], cache["v"][i], lengths, window)
     with trace.scope("logits"):
         x = rms_norm(x, params.final_norm, cfg.norm_eps)
         logits = unembed(x, params.out_proj())

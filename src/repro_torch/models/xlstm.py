@@ -329,22 +329,20 @@ def _run(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor, cache=None, remat
 # ---------------------------------------------------------------------------
 
 
-def forward(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor, *, remat: bool = True,
-            use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor, *,
+            remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Full forward pass over ``tokens`` (B, S). Returns (logits (B, S, V),
     aux loss 0 as a 0-dim f32 tensor). ``remat`` recomputes each mLSTM block
-    in the backward. ``use_kernel`` is accepted for the common surface; no
-    kernel is on this path."""
+    in the backward. No kernel is on this path."""
     with sh.gathered(params, recurse=False):
         logits = _logits(cfg, params, _run(cfg, params, tokens, remat=remat))
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
-def loss_fn(cfg: ArchConfig, params: XLSTM, batch, *, remat: bool = True,
-            use_kernel: bool = True):
+def loss_fn(cfg: ArchConfig, params: XLSTM, batch, *, remat: bool = True):
     """batch: {"tokens", "labels"} (B, S). Returns (ce + aux, {"ce", "nll",
     "aux"}), 0-dim f32 tensors."""
-    logits, aux = forward(cfg, params, batch["tokens"], remat=remat, use_kernel=use_kernel)
+    logits, aux = forward(cfg, params, batch["tokens"], remat=remat)
     ce, nll = cross_entropy(logits, batch["labels"], tp=params.tp)
     return ce + aux, {"ce": ce, "nll": nll, "aux": aux}
 
@@ -369,8 +367,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len=None, *,
     return cache
 
 
-def prefill(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor, cache, *,
-            use_kernel: bool = True):
+def prefill(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor, cache):
     """Run the prompt from a fresh state (whatever ``cache`` holds), writing
     every block's final state into the cache in place. Returns (last-token
     logits (B, 1, V), cache); ``lengths`` is the prompt's length, what
@@ -381,8 +378,7 @@ def prefill(cfg: ArchConfig, params: XLSTM, tokens: torch.Tensor, cache, *,
     return logits, cache
 
 
-def decode_step(cfg: ArchConfig, params: XLSTM, cache, tokens: torch.Tensor, *,
-                use_kernel: bool = True):
+def decode_step(cfg: ArchConfig, params: XLSTM, cache, tokens: torch.Tensor):
     """One greedy decode step. tokens: (B, 1) int32, the current token.
     Returns (logits (B, 1, V), cache updated in place)."""
     x = _embed(params, tokens)

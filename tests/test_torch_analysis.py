@@ -19,8 +19,8 @@ engine and rules, read for CUDA-graph capture.
   ``--write-baseline`` grandfathers its findings and reports them stale
   once they are gone.
 """
+from _torch_cpu import child_env
 import json
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -51,7 +51,7 @@ def _findings(name: str):
 
 
 def _cli(*args, cwd=ROOT, module="repro_torch.analysis"):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = child_env(PYTHONPATH=str(ROOT / "src"))
     return subprocess.run([sys.executable, "-m", module, *args], capture_output=True,
                           text=True, env=env, cwd=cwd, timeout=300)
 

@@ -55,6 +55,7 @@ all-gathered over the model axis; ``Model.decode_tokens`` on (1, 2); and on
 Each mesh's ranks are spawned once for the cases above and once for the
 recurrent families, with a join timeout of their own.
 """
+import _torch_cpu  # noqa: F401
 import json
 import tempfile
 import time

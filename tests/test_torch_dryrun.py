@@ -29,8 +29,8 @@ in this container for the reference.
   at most 15% more (each trip counted as a middle step's body, with the
   carried state's gradient, as a while loop's body times its trip count).
 """
+from _torch_cpu import child_env
 import json
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -50,7 +50,7 @@ finally:
 
 
 def _dryrun(*args: str) -> subprocess.CompletedProcess:
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = child_env(PYTHONPATH=str(ROOT / "src"))
     env.pop("JAX_PLATFORMS", None)
     return subprocess.run([sys.executable, "-c", _RUN, *args], capture_output=True, text=True,
                           env=env, timeout=300, cwd=ROOT)
@@ -81,7 +81,7 @@ def _result(name: str) -> dict:
 def llama():
     """llama3.2-1b's train_4k, and decode_32k local and shard_map, through
     ``run_one`` in one child process."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = child_env(PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", _LLAMA], capture_output=True, text=True,
                          env=env, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -250,7 +250,7 @@ print(json.dumps(out))
 def recurrent():
     """zamba2-1.2b and xlstm-1.3b at the four shapes through ``run_one``,
     with the wall time of each, in one child process."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = child_env(PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", _RECURRENT], capture_output=True, text=True,
                          env=env, timeout=900, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -316,7 +316,7 @@ print(json.dumps(out))
 def test_scan_counted_once_matches_a_full_trace(arch, shape, seq, layers):
     """At ``seq`` tokens (2 and 4 chunks of 256; the sLSTM's 512 steps) and
     ``layers`` layers (one mLSTM group and its sLSTM; one Mamba2 group)."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = child_env(PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", _SCAN_ONCE, arch, shape, str(seq), str(layers)],
                          capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr[-3000:]

@@ -12,6 +12,7 @@ backends), which makes the encoder's output exactly 0; so the model tests run
 on random frames as well as zeros, and only the random ones exercise the
 encoder and cross-attention.
 """
+import _torch_cpu  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ The JAX forms work on one lane and are ``vmap``-ed over the lanes, as
 Integer fields must be equal, floats within rtol 1e-6 (one f32 ulp is about
 6e-8; the P² marker arithmetic chains a few divisions).
 """
+import _torch_cpu  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ again on what it kept).
 The sweeps import ``repro``; the port's run is the same source with its
 imports pointed at ``repro_torch``.
 """
+import _torch_cpu  # noqa: F401
 import types
 from pathlib import Path
 

@@ -11,6 +11,7 @@ themselves are tested in ``test_torch_graphs_cuda.py``. f32 smoke configs,
 tolerances as ``test_torch_model.py`` (rtol = atol = 1e-4: the two packages
 differ only in summation order).
 """
+import _torch_cpu  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,8 +11,8 @@ so tokens must be equal and the K/V rows the captured loop writes equal to
 the eager loop's, bitwise or within the bf16 decode tolerance 2e-2 (f32
 2e-3), as ``test_torch_kernels_cuda.py`` holds the decode kernel.
 """
+from _torch_cpu import child_env
 import dataclasses
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -347,7 +347,7 @@ else:
     raise SystemExit("a capture with a host sync did not raise")
 print("ok")
 """
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = child_env(PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=ROOT, timeout=600)
     print(out.stdout)

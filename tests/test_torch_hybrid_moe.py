@@ -13,6 +13,7 @@ sides compute in float32 and differ in the order of their sums only (the
 dense expert dispatch against one product per expert, the chunked scan
 against the reference's); the readings are about 3e-7.
 """
+import _torch_cpu  # noqa: F401
 import json
 import sys
 from pathlib import Path

@@ -3,8 +3,8 @@
 ``repro``'s (byte for byte once ``repro_torch`` is read as ``repro``), and the
 entry points refuse to run quietly on the CPU when no card is present.
 """
+from _torch_cpu import child_env
 import ast
-import os
 import re
 import subprocess
 import sys
@@ -64,7 +64,7 @@ bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not bad, bad
 print("ok", len({_port_modules()!r}))
 """
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = child_env(PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -10,6 +10,7 @@ in different orders and the Pallas side runs blockwise online softmax);
 bf16 matmul 5e-2 (inputs and outputs rounded to 8 mantissa bits); bf16
 attention 2e-2 (the Pallas kernel also rounds P to bf16).
 """
+import _torch_cpu  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -285,12 +286,14 @@ def test_dispatcher_on_cpu_counts_plain_calls_and_no_launches():
     a = torch.ones(8, 8)
     q = torch.ones(1, 2, 4, 64)
     ops.matmul(a, a)
-    ops.matmul(a, a, use_kernel=False)
+    with ops.plain_path():
+        ops.matmul(a, a)
     ops.flash_attention(q, q, q)
     ops.decode_attention(q[:, :, :1], q, q, torch.tensor([2], dtype=torch.int32))
     ssd = _ssd_args(1, 6, 2, 16, 0)
     ops.ssd_chunked(*ssd, chunk=4)
-    ops.ssd_chunked(*ssd, chunk=4, use_kernel=False)
+    with ops.plain_path():
+        ops.ssd_chunked(*ssd, chunk=4)
     assert ops.plain == ops.counts(matmul=2, flash_attention=1, decode_attention=1, ssd_chunked=2)
     assert ops.launches == ops.counts()
     ops.reset_counters()
@@ -350,7 +353,7 @@ def test_ssd_dispatch_on_cpu_is_the_plain_scan():
 
 def test_ssd_dispatch_on_the_card_route_launches_only_without_a_gradient(monkeypatch):
     """With ``_on_card`` patched, a call without a gradient goes to the
-    kernel's launcher (patched to count); ``use_kernel=False``, and any
+    kernel's launcher (patched to count); in ``ops.plain_path()``, and any
     input that requires grad under grad mode (zamba2's training), to the
     plain scan, which autograd can differentiate."""
     from repro_torch.kernels import _build
@@ -370,7 +373,8 @@ def test_ssd_dispatch_on_the_card_route_launches_only_without_a_gradient(monkeyp
     ops.ssd_chunked(*_ssd_args(1, 10, 2, 16, 3, grad=True), chunk=4, h0=None)
     with torch.no_grad():  # grad mode off: the kernel, whatever requires grad
         ops.ssd_chunked(*_ssd_args(1, 10, 2, 16, 3, grad=True), chunk=4)
-    ops.ssd_chunked(*args, chunk=4, use_kernel=False)
+    with ops.plain_path():
+        ops.ssd_chunked(*args, chunk=4)
     h0 = torch.zeros(1, 2, 16, 16, requires_grad=True)
     y, h = ops.ssd_chunked(*args, chunk=4, h0=h0)
     assert calls == [4, 4]

@@ -20,6 +20,7 @@ attention is held per output row (``_row_limits``): where a row's largest
 |plain| is below the |out| the limits were set at, to two bf16 ulps at that
 value (the measured worst error is one) or, in f32, to the limit times it.
 """
+import _torch_cpu  # noqa: F401
 import numpy as np
 import pytest
 import torch

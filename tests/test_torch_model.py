@@ -5,6 +5,7 @@ inputs are made from a seed with numpy. Everything is f32 on the CPU (the
 smoke configs are f32), so logits agree to rtol/atol 1e-4 — the two sides
 differ only in summation order — and greedy tokens are identical.
 """
+import _torch_cpu  # noqa: F401
 import dataclasses
 
 import jax

@@ -11,6 +11,7 @@ has one. Capacity is covered both ways: the configs' own factor 1.25, with
 inputs whose tokens crowd the same experts so that tokens really are dropped,
 and ``capacity_factor = n_experts``, where no token can be.
 """
+import _torch_cpu  # noqa: F401
 import dataclasses
 
 import jax
@@ -246,7 +247,8 @@ def test_the_dispatcher_sends_a_cpu_call_to_the_plain_version():
     ops.reset_counters()
     want = ref.moe_positions_ref(idx, 8)
     assert torch.equal(ops.moe_positions(idx, 8), want)
-    assert torch.equal(ops.moe_positions(idx, 8, use_kernel=False), want)
+    with ops.plain_path():
+        assert torch.equal(ops.moe_positions(idx, 8), want)
     assert ops.plain == ops.counts(moe_positions=2)
     assert ops.launches == ops.counts()
     ops.reset_counters()

@@ -13,6 +13,7 @@ exact in the plain form's f32 below 2**24 pairs, so the kernel must give them
 bit for bit (``torch.equal``), and so must the dispatch and combine masks
 that ``dispatch_combine`` builds from them.
 """
+import _torch_cpu  # noqa: F401
 import pytest
 import torch
 
@@ -134,7 +135,8 @@ def test_dispatch_and_combine_equal_the_plain_paths(S, E, K):
     probs = torch.softmax(torch.randn(1, S, E, generator=gen, device="cuda") * 3, dim=-1)
     with torch.no_grad():
         got = moe.dispatch_combine(m, probs)
-        want = moe.dispatch_combine(m, probs, use_kernel=False)
+        with ops.plain_path():
+            want = moe.dispatch_combine(m, probs)
     assert ops.launches == _build.counts(moe_positions=1)
     assert ops.plain == _build.counts(moe_positions=1)
     for g, w in zip(got, want):
@@ -146,9 +148,10 @@ def test_under_autograd_the_kernel_runs_and_the_gate_gradient_is_the_plain_paths
     gen = torch.Generator(device="cuda").manual_seed(11)
     logits = torch.randn(1, 600, 72, generator=gen, device="cuda")
     grads = []
-    for use_kernel in (True, False):
+    for plain in (False, True):
         x = logits.clone().requires_grad_(True)
-        _, combine = moe.dispatch_combine(m, torch.softmax(x, dim=-1), use_kernel)
+        with ops.plain_path(plain):
+            _, combine = moe.dispatch_combine(m, torch.softmax(x, dim=-1))
         (combine * torch.arange(combine.shape[-1], device="cuda")).sum().backward()
         grads.append(x.grad)
     assert ops.launches == _build.counts(moe_positions=1)

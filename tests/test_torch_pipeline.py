@@ -16,6 +16,7 @@ models give identical greedy tokens.
 ``test_torch_pipeline_load_aware.py`` and ``test_torch_pipeline_controllers.py``,
 one file each, so that each gets a worker of its own.
 """
+import _torch_cpu  # noqa: F401
 import contextlib
 
 import jax

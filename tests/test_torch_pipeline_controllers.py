@@ -5,6 +5,7 @@ runs its own guards on both packages (the queue-aware arm defers, and cuts
 replica churn and cost per item); rows, headline and every item must be
 equal.
 """
+import _torch_cpu  # noqa: F401
 from test_torch_pipeline import run_both
 
 

@@ -12,6 +12,7 @@ CPU (its ``decode_tokens`` there is the same loop as eager decode), so it is
 not run here; ``chip_smoke.py`` times captured against eager serving on the
 card.
 """
+import _torch_cpu  # noqa: F401
 from test_torch_pipeline import run_both
 
 N_ITEMS = 200  # load_aware_sweep(smoke=True)

@@ -5,6 +5,7 @@ equal exactly. ``_compute`` is held against the JAX probe's plain path
 (``use_pallas=False``) at n=256, repeats=2 — the weather workflow's size; the
 values are exact in f32 (0.5 * (0.25 * 256)^2), so the match is exact too.
 """
+import _torch_cpu  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -15,8 +15,8 @@
   ``w_down`` or the MoE's combined experts) and one for the vocab-split
   embedding, and nothing else.
 """
+from _torch_cpu import child_env
 import json
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -146,7 +146,7 @@ print(json.dumps(out))
 
 
 def test_megatron_collective_counts_on_a_fake_mesh():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = child_env(PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", _MEGATRON], capture_output=True, text=True,
                          env=env, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]

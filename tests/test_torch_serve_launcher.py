@@ -3,6 +3,7 @@ against ``repro.launch.serve``: under the same arguments, with
 ``--device cpu`` on the port's side, both print the same summary line
 (replicas started and terminated, pool speed, mean latency, cost). The gate
 is simulated and draws the same numpy numbers, so the lines are equal."""
+import _torch_cpu  # noqa: F401
 import sys
 
 import pytest

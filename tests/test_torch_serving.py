@@ -10,6 +10,7 @@ Also the port's counterparts of test_serving_jit.py: bucketing, eager ==
 bucketed tokens, batch and decode-bucket padding leave tokens unchanged, and
 the ``jit_stats`` bookkeeping.
 """
+import _torch_cpu  # noqa: F401
 import jax
 import numpy as np
 import pytest

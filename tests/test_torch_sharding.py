@@ -20,7 +20,7 @@ it keeps a dim that its mesh axes do not divide: the port's counterpart of
 ``tests/test_shardings.py::test_shard_divisibility_guard_noop``, which is red
 in this container for the reference.
 """
-import os
+from _torch_cpu import child_env
 import subprocess
 import sys
 from pathlib import Path
@@ -251,7 +251,7 @@ print("ok")
 
 
 def test_shard_under_a_production_mesh():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = child_env(PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", _UNDER_A_MESH], capture_output=True, text=True,
                          env=env, timeout=300)
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]

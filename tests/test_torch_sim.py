@@ -7,6 +7,7 @@ come out EXACTLY equal in both packages: the golden digests of
 ``test_unified_substrate.py``, closed-loop, open-loop and workflow runs
 request by request, and the paper's day experiment.
 """
+import _torch_cpu  # noqa: F401
 import dataclasses
 
 import numpy as np

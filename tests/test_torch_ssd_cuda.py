@@ -18,6 +18,7 @@ for bit). A bf16 call must give the f32 call's y rounded to bf16 and its
 state, bit for bit: the kernel widens bf16 inputs exactly and computes in
 f32.
 """
+import _torch_cpu  # noqa: F401
 import dataclasses
 
 import pytest

@@ -7,6 +7,7 @@ Tolerance: outputs and final states within 1e-5 of the largest value of the
 reference's (f32; the two sides sum in different orders). Step chains are
 held to the port's own chunked prefix at the reference's 2e-4 / 2e-3.
 """
+import _torch_cpu  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,7 @@ served request and their tree, the tracer off, the eager scopes under
 around a stand-in graph, and the pure readers (scope map, scope times,
 self time). Capture-time scope maps need the card:
 ``tests/test_torch_trace_cuda.py``."""
+import _torch_cpu  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -7,6 +7,7 @@ Every test carries the ``cuda`` marker and skips where
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_trace_cuda.py
 """
+import _torch_cpu  # noqa: F401
 import dataclasses
 
 import pytest

@@ -16,6 +16,7 @@ autograd; here ``ops._on_card`` is patched to route CPU tensors there and the
 kernel's launcher to its plain version, which checks the wiring and the
 launch, plain and backward counts.
 """
+import _torch_cpu  # noqa: F401
 import dataclasses
 import json
 
@@ -442,5 +443,6 @@ def test_decode_and_matmul_kernels_refuse_gradients_on_the_card(on_card):
     assert sum(_build.launches.values()) == 0
     # on the CPU's own route both run their plain versions, under autograd
     q2 = q.detach().clone().requires_grad_(True)
-    ops.decode_attention(q2, kc, kc, lens, use_kernel=False).sum().backward()
+    with ops.plain_path():
+        ops.decode_attention(q2, kc, kc, lens).sum().backward()
     assert q2.grad is not None

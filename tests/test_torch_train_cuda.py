@@ -14,6 +14,7 @@ bf16 limit. A llama smoke train step on the card equals the CPU's within
 the CPU's on the same gradients and state within 1e-5, and serving after
 training launches exactly what it launched before.
 """
+import _torch_cpu  # noqa: F401
 import dataclasses
 
 import numpy as np

@@ -18,6 +18,7 @@ against the reference (``repro.sim.vectorized``), on the CPU.
   determinism, lane independence, open-loop conservation, the slot-load
   replay, the think-time warning, the argument checks and the sanitizer.
 """
+import _torch_cpu  # noqa: F401
 import dataclasses
 import math
 import warnings

@@ -14,6 +14,7 @@ Every test carries the ``cuda`` marker and skips where
   summaries and rows bitwise equal.
 * A second call of the same shape captures nothing.
 """
+import _torch_cpu  # noqa: F401
 import dataclasses
 import math
 

@@ -10,6 +10,7 @@ tokens are identical. The reference's flat-dict counterpart of its
 reference's own check, decode against the parallel forward within 2e-3 of
 the largest logit (test_models_smoke.py), runs on the port too.
 """
+import _torch_cpu  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np
