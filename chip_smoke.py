@@ -57,7 +57,11 @@ Run from the root of a checkout. It imports ``src/repro_torch`` (never
    queue-position kernel to its plain cumsum form, bit for bit, on routing
    indices drawn on the card at granite's S 896 (32 experts, top-8) and
    granite-4.0-h-small's S 2,048 and 3,840 (72 experts, top-10), and times
-   both beside the kernel's byte bound;
+   both beside the kernel's byte bound; (f) holds the MoE decode kernel to
+   the dense dispatch at granite's and granite-4.0-h-small's decode shapes
+   (one token, bf16: no farther from the f32 dispatch than the bf16 one) and
+   times both, each layer's experts read from device memory, beside the
+   chosen experts' byte bound, at one row and at 8, 16 and 32 rows;
 8. the encoder-decoder family and the pipeline: (a) serves ``--requests``
    requests (decoder start token ``1 + i % 7``, zero audio frames, as the
    pipeline's ASR stage sends them) on full-width whisper-small (12 + 12
@@ -231,8 +235,9 @@ SOURCES = {
                          "src/repro/kernels/decode_attention.py:72"),
     # repro's ssd_chunked (src/repro/models/ssm.py) is plain jnp: no Pallas kernel
     "ssd_chunked": ("src/repro_torch/kernels/csrc/ssd_chunk.cu", "none"),
-    # so are repro's MoE queue positions (src/repro/models/moe.py)
+    # so are repro's MoE queue positions and experts (src/repro/models/moe.py)
     "moe_positions": ("src/repro_torch/kernels/csrc/moe_positions.cu", "none"),
+    "moe_decode": ("src/repro_torch/kernels/csrc/moe_decode.cu", "none"),
 }
 # rtol = atol, per kernel and dtype (PERF.md says how each was set). bf16
 # flash: the kernel rounds P to bf16 before PV, as the Pallas kernel does, and
@@ -254,6 +259,7 @@ BF16_LOGIT_LIMIT = 1.1e-2
 MOE_ARCH = "granite-moe-1b-a400m"  # phase 7's served arch
 DEEPSEEK_LAYERS = 4  # of deepseek-moe-16b's 28, at full width (about 5.5 GB in bf16)
 GRANITE4H_ROUTER = (72, 10)  # granite-4.0-h-small's experts and top-k (portbench/configs)
+GRANITE4H_EXPERTS = (4096, 768)  # its d_model and expert width
 DEEPSEEK_STEPS = 8   # its teacher-forced f32 decode steps
 WHISPER = "whisper-small"  # phase 8's served arch, the pipeline's ASR stage
 ZAMBA = "zamba2-1.2b"  # phase 10's hybrid: Mamba2 and a shared windowed attention block
@@ -1230,6 +1236,86 @@ def moe_positions_phase(cfg, launches, card_str):
     return rows
 
 
+def moe_decode_row(E, K, d, d_e, layers, rows=1):
+    """The MoE decode kernel on ``rows`` rows of one token, each routed to
+    ``K`` of ``E`` experts of ``d`` x ``d_e``, bf16, with ``layers`` layers'
+    experts and choices taken
+    in turn (as a decode step reads each layer's once, so L2 holds none of
+    them: the tables are each larger than L2 or, together, many times it):
+    (shape text, max_abs_err, kernel ms, plain ms, library ms, bound ms,
+    bound by) as :func:`flash_row`. The plain ms is the dense dispatch at 4
+    slots, the path a decode step took before the kernel. Both are held to
+    the dense dispatch in f32 on the same tensors: the kernel may be no
+    farther from it than the dense bf16 path (``max_abs_err`` is the
+    kernel's). The bound is the bytes of the experts the rows chose (each
+    read once, however many rows chose it) at 3.35 TB/s. No library has the
+    operation."""
+    import itertools
+
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_decode import moe_decode
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device=DEVICE).manual_seed(E * d + K)
+
+    def w(*shape, scale):
+        return (torch.randn(*shape, generator=gen, device=DEVICE) * scale).to(torch.bfloat16)
+
+    ws = [(w(E, d, d_e, scale=d ** -0.5), w(E, d, d_e, scale=d ** -0.5),
+           w(E, d_e, d, scale=d_e ** -0.5)) for _ in range(layers)]
+    x = w(rows, 1, d, scale=1.0)
+    probs = torch.softmax(torch.randn(layers, rows, 1, E, generator=gen, device=DEVICE) * 2,
+                          dim=-1)
+    vals, idx = moe.gates(MoEConfig(n_experts=E, top_k=K), probs)
+    calls = [(x, idx[i], vals[i], *ws[i]) for i in range(layers)]
+    chosen = sum(idx[i].unique().numel() for i in range(layers)) / layers
+    with torch.no_grad():
+        want = ref.moe_experts_ref(x.float(), idx[0], vals[0], *(t.float() for t in ws[0]), 4)
+        err = max_err(moe_decode(*calls[0]), want)
+        dense_err = max_err(ref.moe_experts_ref(*calls[0], 4), want)
+    text = (f"x({rows},1,{d}) bf16, top-{K} of {E} experts of {d}x{d_e}, {layers} layers in "
+            f"turn, {chosen:.2f} experts chosen a layer")
+    print(f"[7f] moe_decode {text}: max |kernel - dense f32| {err:.4e}, max |dense bf16 - dense "
+          f"f32| {dense_err:.4e}, max |dense f32| {want.abs().max().item():.4e}")
+    if err > dense_err:
+        raise PhaseError(f"moe_decode kernel farther from the f32 dispatch than the bf16 dispatch "
+                         f"at E {E}, d {d}: {err} > {dense_err}")
+    turn = itertools.count()
+
+    def kernel():
+        return moe_decode(*calls[next(turn) % layers])
+
+    def plain():
+        return ref.moe_experts_ref(*calls[next(turn) % layers], 4)
+
+    with torch.no_grad():
+        ms, plain_ms = graph_ms(kernel), graph_ms(plain)
+    bms, by = bound(3 * chosen * d * d_e * 2, 6 * rows * K * d * d_e, torch.bfloat16)
+    return (text, err, ms, plain_ms, None, bms, by)
+
+
+def moe_decode_phase(cfg, launches, card_str):
+    """7f: the MoE decode kernel alone at granite's decode shape
+    (``launches``: phase 7a's) and at granite-4.0-h-small's, one row; then
+    both at decode batches of 8 to 32 rows, which no cell serves, where the
+    rows' chosen experts overlap and the dense dispatch reads each expert
+    once. Returns the kernels-line entry of the granite row."""
+    m = cfg.moe
+    shapes = [((m.n_experts, m.top_k, cfg.d_model, m.d_expert, 8), cfg.arch_id),
+              ((*GRANITE4H_ROUTER, *GRANITE4H_EXPERTS, 4), "granite-4.0-h")]
+    rows = report_rows([("moe_decode", moe_decode_row(*shapes[0][0]))],
+                       launches, card_str, "7f", suffix=f"[{shapes[0][1]}]")
+    report_rows([("moe_decode", moe_decode_row(*shapes[1][0]))],
+                None, card_str, "7f", suffix=f"[{shapes[1][1]}]")
+    for batch in (8, 16, 32):
+        for shape, name in shapes:
+            report_rows([("moe_decode", moe_decode_row(*shape, rows=batch))],
+                        None, card_str, "7f", suffix=f"[{name} B {batch}]")
+    torch.cuda.empty_cache()
+    return rows
+
+
 def moe_phase(args, card_str):
     """Phase 7: granite-moe-1b-a400m served at full width behind the gate on
     the captured path, held to its exact launches, to the eager path and to
@@ -1244,12 +1330,13 @@ def moe_phase(args, card_str):
     reqs = make_requests(cfg, args.requests, args.new_tokens, args.seed, ServeRequest)
     longest = max(reqs, key=lambda r: len(r.prompt))
     S, tb = len(longest.prompt), _bucket(args.new_tokens, base=8)
-    # 7a. serving, both arms: one K2 launch a layer a request, one K3 launch
-    # a layer a decode step, one queue-position call a layer a prefill and a
-    # decode step, and nothing else
+    # 7a. serving, both arms: one K2 launch and one queue-position call a
+    # layer a request, one K3 launch and one MoE decode call a layer a decode
+    # step, and nothing else
     expected = kernel_counts(flash_attention=2 * len(reqs) * cfg.n_layers,
                              decode_attention=2 * len(reqs) * cfg.n_layers * tb,
-                             moe_positions=2 * len(reqs) * cfg.n_layers * (1 + tb))
+                             moe_positions=2 * len(reqs) * cfg.n_layers,
+                             moe_decode=2 * len(reqs) * cfg.n_layers * tb)
     engines, results, launches = serve_and_count(cfg, reqs, args, card_str, expected, "7a")
     # 7b. captured against eager
     rows = captured_vs_eager(engines["baseline"], reqs, results["baseline"], ph="7b")
@@ -1288,6 +1375,7 @@ def moe_phase(args, card_str):
                                          S + tb // 2))],
         None, card_str, "7d", suffix="[deepseek-moe-16b]")
     kernels += moe_positions_phase(cfg, launches, card_str)
+    kernels += moe_decode_phase(cfg, launches, card_str)
     print(f"[7] phase 7 took {time.perf_counter() - t0:.1f} s")
     return kernels
 

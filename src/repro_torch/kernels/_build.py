@@ -40,13 +40,15 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ("matmul", "flash_attention", "decode_attention", "ssd_chunked", "moe_positions")
+KERNELS = ("matmul", "flash_attention", "decode_attention", "ssd_chunked", "moe_positions",
+           "moe_decode")
 SOURCES = {
     "matmul": "matmul_probe.cu",
     "flash_attention": "flash_attention.cu",
     "decode_attention": "decode_attention.cu",
     "ssd_chunked": "ssd_chunk.cu",
     "moe_positions": "moe_positions.cu",
+    "moe_decode": "moe_decode.cu",
 }
 # dtype codes of the C interface, the head dims the attention kernels are
 # instantiated for, and the (d_state, head dim) pairs of the SSD kernel
@@ -195,6 +197,9 @@ _SIGNATURES = {
     ),
     "moe_positions": (
         "repro_moe_positions", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    ),
+    "moe_decode": (
+        "repro_moe_decode", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     ),
 }
 

@@ -23,7 +23,9 @@ gradient on the card, they raise rather than return an output that autograd
 would treat as a constant. The SSD scan has no backward kernel either: under
 autograd it runs its plain version on the card too (zamba2's training),
 counted in ``plain``. The MoE's queue positions take integer indices, which
-carry no gradient: a CUDA call goes to their kernel under autograd too.
+carry no gradient: a CUDA call goes to their kernel under autograd too. The
+MoE's decode kernel has no backward either: under autograd its dispatcher
+runs the dense dispatch on the card.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from . import decode_attention as _k3
 from . import flash_attention as _k2
 from .decode_attention import decode_attention as _decode_attention
 from .matmul_probe import matmul as _matmul
+from .moe_decode import moe_decode as _moe_decode
 from .moe_positions import moe_positions as _moe_positions
 from .ssd_chunk import ssd_chunked as _ssd_chunked
 
@@ -176,3 +179,18 @@ def moe_positions(gate_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
         return _moe_positions(gate_idx, n_experts)
     plain["moe_positions"] += 1
     return ref.moe_positions_ref(gate_idx, n_experts)
+
+
+def moe_decode(x: torch.Tensor, gate_idx: torch.Tensor, gate_vals: torch.Tensor,
+               w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor, *,
+               capacity: int) -> torch.Tensor:
+    """The experts' output at one token a row, (B, 1, d) in x's dtype, from
+    the router's choices (``moe.gates``: (B, 1, K) each). The kernel on the
+    card without a gradient: only the chosen experts. The dense dispatch at
+    ``capacity`` slots an expert (``ref.moe_experts_ref``) on the CPU, in
+    :func:`plain_path` or under autograd; the two agree wherever no expert
+    takes more than ``capacity`` of a row's pairs."""
+    if _kernel(x) and not _wants_grad(x, gate_vals, w_gate, w_up, w_down):
+        return _moe_decode(x, gate_idx, gate_vals, w_gate, w_up, w_down)
+    plain["moe_decode"] += 1
+    return ref.moe_experts_ref(x, gate_idx, gate_vals, w_gate, w_up, w_down, capacity)

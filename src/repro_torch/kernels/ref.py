@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the kernels.
 
-They compute what ``repro.kernels.ref`` computes (the MoE's queue positions:
-what ``repro.models.moe`` computes inline): the ground truth the CUDA
-kernels are held against (``chip_smoke.py``, ``tests/test_torch_kernels.py``)
-and the path :mod:`repro_torch.kernels.ops` takes for a tensor on the CPU.
+They compute what ``repro.kernels.ref`` computes (the MoE's queue positions
+and its dense dispatch: what ``repro.models.moe`` computes inline): the
+ground truth the CUDA kernels are held against (``chip_smoke.py``,
+``tests/test_torch_kernels.py``) and the path :mod:`repro_torch.kernels.ops`
+takes for a tensor on the CPU. The MoE's prefill and training run the dense
+dispatch's masks and expert GEMMs from here too.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 _NEG = -1e30
 
@@ -91,7 +94,50 @@ def moe_positions_ref(gate_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
     pair summed down the row's S·K pairs, exact below 2**24 pairs). (B, S, K)
     int32; a pair whose index lies outside [0, n_experts) gets 0."""
     B, S, K = gate_idx.shape
-    onehot = (gate_idx[..., None] == torch.arange(n_experts, device=gate_idx.device)).float()
+    onehot = one_hot(gate_idx, n_experts)
     pos_in_e = torch.cumsum(onehot.reshape(B, S * K, n_experts), dim=1).reshape(onehot.shape)
     pos_in_e = (pos_in_e - 1.0) * onehot                               # 0-based, only where routed
     return torch.sum(pos_in_e * onehot, dim=-1).to(torch.int32)
+
+
+def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """f32 one-hot of ``idx`` over ``n`` classes; an index outside [0, n)
+    gives a row of zeros, as ``jax.nn.one_hot`` does (``F.one_hot`` would
+    raise there: a dropped pair's queue position is ``>= C``)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
+def moe_masks(gate_vals: torch.Tensor, gate_idx: torch.Tensor, pos: torch.Tensor,
+              n_experts: int, capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dense dispatch's (B, S, E, C) f32 dispatch mask (1 where token s
+    takes slot c of expert e) and combine weights (its gate value there),
+    from the router's choices (B, S, K) and their queue positions; a pair at
+    a position ``>= capacity`` is dropped."""
+    routed = one_hot(gate_idx, n_experts) * (pos < capacity)[..., None]  # (B, S, K, E)
+    cap_oh = one_hot(pos, capacity)                                    # (B, S, K, C), 0 past C
+    dispatch = torch.einsum("bske,bskc->bsec", routed, cap_oh)
+    combine = torch.einsum("bsk,bske,bskc->bsec", gate_vals, routed, cap_oh)
+    return dispatch, combine
+
+
+def moe_slots(x: torch.Tensor, dispatch: torch.Tensor, combine: torch.Tensor,
+              w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """Every expert's SwiGLU over its C slots, combined back: (B, S, d)."""
+    xe = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), x)       # (B, E, C, d)
+    h = torch.einsum("becd,edf->becf", xe, w_gate)
+    u = torch.einsum("becd,edf->becf", xe, w_up)
+    ye = torch.einsum("becf,efd->becd", F.silu(h) * u, w_down)         # (B, E, C, d)
+    return torch.einsum("bsec,becd->bsd", combine.to(x.dtype), ye)
+
+
+def moe_experts_ref(x: torch.Tensor, gate_idx: torch.Tensor, gate_vals: torch.Tensor,
+                    w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+                    capacity: int) -> torch.Tensor:
+    """The experts' output by the dense dispatch at ``capacity`` slots an
+    expert, the queue positions in their cumsum form: the plain version of
+    the MoE decode kernel. At one token a row it drops no pair (a token's
+    top-k experts are distinct), so it equals Σ_k g_k · SwiGLU_{e_k}(x)."""
+    E = w_gate.shape[0]
+    dispatch, combine = moe_masks(gate_vals, gate_idx, moe_positions_ref(gate_idx, E), E,
+                                  capacity)
+    return moe_slots(x, dispatch, combine, w_gate, w_up, w_down)

@@ -23,9 +23,11 @@ size ``cfg.ssm.head_dim``.
 
 On the card each Mamba2 layer's prefill runs the SSD kernel once, each
 attention layer's prefill the flash-attention kernel and each of its decode
-steps the decode-attention kernel; the MoE FFN is plain PyTorch ops (the
-dense dispatch of :mod:`repro_torch.models.moe`: a decode step computes all
-the experts at 4 slots). The cache is a flat dict written in place: ``h``
+steps the decode-attention kernel. The MoE FFN's prefill is the dense
+dispatch of :mod:`repro_torch.models.moe` (every expert over its capacity
+slots, the queue positions from their kernel); each decode step runs the MoE
+decode kernel once a layer, which reads the chosen experts' weights only.
+The cache is a flat dict written in place: ``h``
 (Mamba2 layers, B, H, N, P) f32, ``conv`` (Mamba2 layers, B, d_conv - 1,
 conv_dim), ``attn_k``/``attn_v`` (attention layers, B, K, rows, hd) and
 ``lengths``. Prefill starts every Mamba2 layer from a zero state.

@@ -17,26 +17,28 @@ on ``(B, S)``, and it reads no value back to the host, so a CUDA graph can
 capture it. One-hot rows are built by comparing with ``arange``, which, like
 ``jax.nn.one_hot``, gives a zero row for an index out of range (a dropped
 token's queue position is ``>= C``); ``F.one_hot`` would raise there.
+
+At one token a row no pair can be dropped: a token's top-k experts are
+distinct, so each takes at most one of the row's pairs, and C >= 4. There
+the experts' output is Σ_k g_k · SwiGLU_{e_k}(x), and a decode step on an
+MoE not placed on a mesh goes to ``ops.moe_decode``: on the card a
+hand-written kernel that reads the chosen experts' weights only, elsewhere
+the dense dispatch. Prefill, training and a placed MoE keep the dense
+dispatch (its masks and GEMMs are ``kernels/ref.py``'s ``moe_masks`` and
+``moe_slots``, the plain version's own).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig, MoEConfig
 from ..distributed import sharding as sh
 from ..distributed.sharding import shard
-from ..kernels import ops
+from ..kernels import ops, ref
 from .layers import SwiGLU, normal_init, swiglu
-
-
-def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
-    """f32 one-hot of ``idx`` over ``n`` classes; an index outside [0, n)
-    gives a row of zeros, as ``jax.nn.one_hot`` does."""
-    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
 
 
 def _capacity(tokens: int, top_k: int, n_experts: int, cf: float) -> int:
@@ -101,7 +103,7 @@ def router_aux(m: MoEConfig, logits: torch.Tensor, probs: torch.Tensor) -> torch
     ``f`` and ``p̄`` are the means over the whole batch (one all-reduce
     over the data axes); the z-loss is this rank's rows' mean."""
     E = m.n_experts
-    f = _one_hot(torch.argmax(probs, dim=-1), E).mean(dim=(0, 1))
+    f = ref.one_hot(torch.argmax(probs, dim=-1), E).mean(dim=(0, 1))
     pbar = probs.mean(dim=(0, 1))
     # the whole batch's means, where the batch is split over the data ranks
     # (the product is not linear in the batch; the z-loss's mean is)
@@ -123,16 +125,11 @@ def dispatch_combine(m: MoEConfig, probs: torch.Tensor) -> tuple[torch.Tensor, t
     """The (B, S, E, C) f32 dispatch mask (1 where token s takes slot c of
     expert e) and combine weights (its gate value there)."""
     _, S, E = probs.shape
-    C = _capacity(S, m.top_k, E, m.capacity_factor)
     gate_vals, gate_idx = gates(m, probs)
     # position of each (token, k) within its expert queue, per row
     pos = ops.moe_positions(gate_idx, E)       # (B, S, K) int32
-    keep = pos < C
-    routed = _one_hot(gate_idx, E) * keep[..., None]                   # (B, S, K, E)
-    cap_oh = _one_hot(pos, C)                                          # (B, S, K, C), 0 past C
-    dispatch = torch.einsum("bske,bskc->bsec", routed, cap_oh)
-    combine = torch.einsum("bsk,bske,bskc->bsec", gate_vals, routed, cap_oh)
-    return dispatch, combine
+    return ref.moe_masks(gate_vals, gate_idx, pos, E,
+                         _capacity(S, m.top_k, E, m.capacity_factor))
 
 
 def _experts(m: MoEConfig, p: MoE, x: torch.Tensor, probs: torch.Tensor,
@@ -141,6 +138,12 @@ def _experts(m: MoEConfig, p: MoE, x: torch.Tensor, probs: torch.Tensor,
     all-reduced (with ``seq_block`` reduce-scattered over the sequence, and
     an unsplit part's block of the sequence kept)."""
     tp = p.tp
+    if tp is None and x.shape[1] == 1:
+        # one token a row: no pair is dropped, so only the chosen experts count
+        gate_vals, gate_idx = gates(m, probs)
+        y = ops.moe_decode(x, gate_idx, gate_vals, p.w_gate, p.w_up, p.w_down,
+                           capacity=_capacity(1, m.top_k, m.n_experts, m.capacity_factor))
+        return y if p.shared is None else y + p.shared(x)
     if tp is not None and tp.experts:
         # the combine weights below are split: their gradient is partial
         probs = sh.copy_to(probs)
@@ -149,11 +152,7 @@ def _experts(m: MoEConfig, p: MoE, x: torch.Tensor, probs: torch.Tensor,
         dispatch = shard(dispatch, "batch", None, "expert", None)
         combine = shard(combine, "batch", None, "expert", None)
         x = sh.copy_to(x)
-    xe = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), x)       # (B, E, C, d)
-    h = torch.einsum("becd,edf->becf", xe, p.w_gate)
-    u = torch.einsum("becd,edf->becf", xe, p.w_up)
-    ye = torch.einsum("becf,efd->becd", F.silu(h) * u, p.w_down)       # (B, E, C, d)
-    y = torch.einsum("bsec,becd->bsd", combine.to(x.dtype), ye)
+    y = ref.moe_slots(x, dispatch, combine, p.w_gate, p.w_up, p.w_down)
     if tp is None:
         if p.shared is not None:
             y = y + p.shared(x)

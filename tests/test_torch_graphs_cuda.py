@@ -93,10 +93,10 @@ def test_captured_path_matches_eager_loop(dtype):
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-moe-16b"])
 def test_moe_captured_path_matches_eager_loop(arch):
-    """The MoE FFN's dense dispatch (top-k, queue positions, capacity masks)
+    """The MoE FFN (top-k, then the decode kernel over the chosen experts)
     is captured with the rest of the decode loop: no host sync in it. The
-    queue positions' kernel runs once a layer in the prefill and in each
-    decode step."""
+    queue positions' kernel runs once a layer in the prefill, the MoE decode
+    kernel once a layer in each decode step."""
     m = build_model(dataclasses.replace(get_smoke_config(arch), dtype="bfloat16"))
     params = m.init(0)
     L, S, cache_len, T = m.cfg.n_layers, 45, 64, 16
@@ -107,7 +107,7 @@ def test_moe_captured_path_matches_eager_loop(arch):
     toks, _ = m.decode_tokens(params, cache, prompt[:, -1:], T)
     torch.cuda.synchronize()
     assert _build.launches == _build.counts(flash_attention=L, decode_attention=L * T,
-                                            moe_positions=L * (1 + T))
+                                            moe_positions=L, moe_decode=L * T)
     assert sum(_build.plain.values()) == 0
     want_logits, want_toks, want = _eager(m, params, prompt, cache_len, T)
     assert m.graph_stats == {"captures": 2, "replays": 2, "dropped": 0}

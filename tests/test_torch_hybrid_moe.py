@@ -167,13 +167,13 @@ def test_the_published_configuration_builds_the_published_shapes():
 @pytest.mark.parametrize("use_kernels", [True, False])
 def test_use_kernel_reaches_the_router_in_forward_prefill_and_decode(monkeypatch, use_kernels):
     """As ``test_torch_moe.py``'s test of the same name, for the family's
-    own layer loop: one queue-position call a layer a forward, prefill and
-    decode step, to the kernel or to the plain version as ``use_kernels``
-    says."""
+    own layer loop: one queue-position call a layer a forward and a prefill,
+    one call of the decode step's experts a layer a decode step, to the
+    kernels or to the plain versions as ``use_kernels`` says."""
     from test_torch_moe import _launched_as_on_card, served_calls
 
     _launched_as_on_card(monkeypatch)
     cfg = harness.arch_config(small_config())
     m = build_model(cfg, device="cpu", use_kernels=use_kernels)
-    calls = cfg.n_layers * (2 + 3)
-    assert served_calls(m, m.init(0)) == ((calls, 0) if use_kernels else (0, calls))
+    calls = (cfg.n_layers * 2, cfg.n_layers * 3)
+    assert served_calls(m, m.init(0)) == ((calls, (0, 0)) if use_kernels else ((0, 0), calls))

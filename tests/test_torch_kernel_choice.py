@@ -30,7 +30,8 @@ ARCHS = {"dense": "llama3.2-1b", "moe": "granite-moe-1b-a400m", "vlm": "chameleo
 
 # the launches (kernel -> count, the log-sum-exp form under its own name) of
 # each phase with use_kernels=True, counted when each family function still
-# took the choice as an argument
+# took the choice as an argument; since then a decode step's MoE launches the
+# decode kernel once a layer and computes no queue positions
 LAUNCHES = {
     "dense": {"forward": {"flash_attention": 2}, "loss": {"flash_attention": 4},
               "prefill": {"flash_attention": 2}, "decode": {"decode_attention": 6}},
@@ -39,7 +40,7 @@ LAUNCHES = {
     "moe": {"forward": {"flash_attention": 2, "moe_positions": 2},
             "loss": {"flash_attention": 4, "moe_positions": 4},
             "prefill": {"flash_attention": 2, "moe_positions": 2},
-            "decode": {"decode_attention": 6, "moe_positions": 6}},
+            "decode": {"decode_attention": 6, "moe_decode": 6}},
     "encdec": {"forward": {"flash_attention": 6}, "loss": {"flash_attention": 12},
                "prefill": {"flash_attention": 2}, "decode": {"decode_attention": 12}},
     # the SSD scan runs its plain version under autograd
@@ -50,7 +51,7 @@ LAUNCHES = {
     "hybrid_moe": {"forward": {"flash_attention": 1, "ssd_chunked": 3, "moe_positions": 4},
                    "loss": {"flash_attention": 2, "moe_positions": 8},
                    "prefill": {"flash_attention": 1, "ssd_chunked": 3, "moe_positions": 4},
-                   "decode": {"decode_attention": 3, "moe_positions": 12}},
+                   "decode": {"decode_attention": 3, "moe_decode": 12}},
     "xlstm": {"forward": {}, "loss": {}, "prefill": {}, "decode": {}},
 }
 
@@ -88,12 +89,27 @@ def _all_launched_as_on_card(monkeypatch):
         _build.check("moe_positions", 0)
         return ref.moe_positions_ref(idx, E)
 
+    def experts(x, idx, vals, w_gate, w_up, w_down):
+        _build.check("moe_decode", 0)
+        return gathered_experts(x, idx, vals, w_gate, w_up, w_down)
+
     monkeypatch.setattr(ops, "_on_card", lambda t: True)
     monkeypatch.setattr(ops, "_matmul", matmul)
     monkeypatch.setattr(kflash, "flash_attention", flash)
     monkeypatch.setattr(ops, "_decode_attention", decode)
     monkeypatch.setattr(ops, "_ssd_chunked", ssd)
     monkeypatch.setattr(ops, "_moe_positions", positions)
+    monkeypatch.setattr(ops, "_moe_decode", experts)
+
+
+def gathered_experts(x, idx, vals, w_gate, w_up, w_down):
+    """Σ_k g_k · SwiGLU_{e_k}(x) for each row of one token, each pair's
+    experts gathered: what the MoE's decode kernel computes."""
+    xe = x[:, :, None, None, :]                                     # (B, 1, 1, 1, d)
+    h = (xe @ w_gate[idx]).squeeze(-2)                              # (B, 1, K, d_e)
+    u = (xe @ w_up[idx]).squeeze(-2)
+    y = (torch.nn.functional.silu(h) * u)[..., None, :] @ w_down[idx]  # (B, 1, K, 1, d)
+    return (vals[..., None] * y.squeeze(-2)).sum(dim=2).to(x.dtype)
 
 
 def _counted(run) -> tuple[dict, dict]:
@@ -179,6 +195,10 @@ def test_plain_path_sends_a_call_on_the_card_route_to_the_plain_version(monkeypa
     ssd = (torch.randn(1, 6, 2, 4), torch.rand(1, 6, 2), -torch.rand(2), torch.randn(1, 6, 4),
            torch.randn(1, 6, 4), torch.ones(2))
     idx = torch.tensor(rs.randint(0, 4, size=(1, 6, 2)))
+    tok = torch.tensor(rs.randn(1, 1, 8).astype(np.float32))
+    experts = [torch.tensor(rs.randn(*shape).astype(np.float32))
+               for shape in ((4, 8, 16), (4, 8, 16), (4, 16, 8))]
+    choice = idx[:, :1].contiguous(), torch.full((1, 1, 2), 0.5)
 
     def every():
         ops.matmul(a, a)
@@ -187,6 +207,7 @@ def test_plain_path_sends_a_call_on_the_card_route_to_the_plain_version(monkeypa
         ops.decode_attention(q[:, :, :1], q, q, lens, return_lse=True)
         ops.ssd_chunked(*ssd, chunk=3)
         ops.moe_positions(idx, 4)
+        ops.moe_decode(tok, *choice, *experts, capacity=4)
 
     every_kernel = {**dict.fromkeys(ops.counts(), 1), "decode_attention_lse": 1}
     assert _counted(every) == (every_kernel, {})

@@ -271,22 +271,18 @@ def test_the_kernel_is_built_and_counted():
 
 
 def _launched_as_on_card(monkeypatch):
-    """Patches the dispatcher so that the router's int64 indices count as on
-    the card (no other input it routes is int64) and the launcher counts a
-    launch and runs the plain form: the kernel's route, on the CPU."""
-    from repro_torch.kernels import _build, ops, ref
+    """Every dispatcher takes the card's route on the CPU, each launcher
+    counting a launch and running the plain form (``test_torch_kernel_choice``):
+    the kernels' route, on the CPU."""
+    from test_torch_kernel_choice import _all_launched_as_on_card
 
-    def launch(idx, E):
-        _build.check("moe_positions", 0)
-        return ref.moe_positions_ref(idx, E)
-
-    monkeypatch.setattr(ops, "_on_card", lambda t: t.dtype == torch.int64)
-    monkeypatch.setattr(ops, "_moe_positions", launch)
+    _all_launched_as_on_card(monkeypatch)
 
 
 def served_calls(m, params, S=11, T=3):
-    """The launches and plain calls of the queue positions in one forward,
-    one prefill and ``T`` decode steps of ``m``."""
+    """The launches and the plain calls, each as (queue positions, decode
+    step's experts), in one forward, one prefill and ``T`` decode steps of
+    ``m``."""
     from repro_torch.kernels import ops
 
     tokens = torch.arange(1, S + 1, dtype=torch.int32)[None]
@@ -295,18 +291,150 @@ def served_calls(m, params, S=11, T=3):
     cache = m.init_cache(1, 32)
     m.prefill(params, {"tokens": tokens}, cache)
     m.decode_tokens(params, cache, tokens[:, -1:], T)
-    calls = ops.launches["moe_positions"], ops.plain["moe_positions"]
+    calls = tuple((n["moe_positions"], n["moe_decode"]) for n in (ops.launches, ops.plain))
     ops.reset_counters()
     return calls
 
 
 @pytest.mark.parametrize("use_kernels", [True, False])
 def test_use_kernel_reaches_the_router_in_forward_prefill_and_decode(monkeypatch, use_kernels):
-    """The model's ``use_kernels`` reaches ``ops.moe_positions`` in forward,
-    prefill and decode: the kernel path launches once a layer a call (3
-    decode steps) and the plain path calls the plain version as often."""
+    """The model's ``use_kernels`` reaches ``ops.moe_positions`` in forward
+    and prefill and ``ops.moe_decode`` in decode: the kernel path launches
+    the positions once a layer a forward and a prefill, the decode kernel
+    once a layer a decode step (3) and no positions there; the plain path
+    calls the plain versions as often."""
     _launched_as_on_card(monkeypatch)
     cfg = get_smoke_config("granite-moe-1b-a400m")
     m = build_model(cfg, device="cpu", use_kernels=use_kernels)
-    calls = cfg.n_layers * (2 + 3)
-    assert served_calls(m, m.init(0)) == ((calls, 0) if use_kernels else (0, calls))
+    calls = (cfg.n_layers * 2, cfg.n_layers * 3)
+    assert served_calls(m, m.init(0)) == ((calls, (0, 0)) if use_kernels else ((0, 0), calls))
+
+
+# ---------------------------------------------------------------------------
+# the decode step's experts: ops.moe_decode, the kernel on the card and the
+# dense dispatch (ref.moe_experts_ref) on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _decode_case(B, E, K, d, d_e, seed):
+    """x (B, 1, d), the router's choices and the experts' weights, f32."""
+    rs = np.random.RandomState(seed)
+    x = torch.tensor(rs.randn(B, 1, d).astype(np.float32))
+    probs = torch.softmax(torch.tensor(rs.randn(B, 1, E).astype(np.float32)) * 2, dim=-1)
+    vals, idx = tmoe.gates(dataclasses.replace(get_smoke_config(ARCHS[0]).moe, n_experts=E,
+                                               top_k=K), probs)
+    ws = [torch.tensor(rs.randn(*shape).astype(np.float32) * shape[1] ** -0.5)
+          for shape in ((E, d, d_e), (E, d, d_e), (E, d_e, d))]
+    return x, idx, vals, ws
+
+
+def test_the_dense_dispatch_at_one_token_is_the_sum_over_the_chosen_experts():
+    """At one token a row the dense dispatch drops nothing: it equals Σ_k g_k
+    · SwiGLU_{e_k}(x), what the kernel computes, up to summation order; also
+    where a row's pairs all name one expert and the capacity holds them."""
+    from repro_torch.kernels import ref
+    from test_torch_kernel_choice import gathered_experts
+
+    x, idx, vals, ws = _decode_case(3, 8, 3, 32, 16, 1)
+    C = tmoe._capacity(1, 3, 8, 1.25)
+    want = gathered_experts(x, idx, vals, *ws)
+    torch.testing.assert_close(ref.moe_experts_ref(x, idx, vals, *ws, C), want,
+                               rtol=1e-5, atol=1e-5)
+    one = torch.full_like(idx, 5)
+    torch.testing.assert_close(ref.moe_experts_ref(x, one, vals, *ws, 3),
+                               gathered_experts(x, one, vals, *ws), rtol=1e-5, atol=1e-5)
+
+
+def test_the_decode_dispatcher_sends_a_cpu_call_and_a_plain_path_call_to_the_dense_dispatch(
+        monkeypatch):
+    from repro_torch.kernels import _build, ops, ref
+
+    x, idx, vals, ws = _decode_case(2, 8, 2, 16, 8, 2)
+    want = ref.moe_experts_ref(x, idx, vals, *ws, 4)
+    ops.reset_counters()
+    assert torch.equal(ops.moe_decode(x, idx, vals, *ws, capacity=4), want)
+    assert ops.plain == ops.counts(moe_decode=1)
+    assert ops.launches == ops.counts()
+
+    def launch(*args):
+        _build.check("moe_decode", 0)
+        return want
+
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
+    monkeypatch.setattr(ops, "_moe_decode", launch)
+    monkeypatch.setattr(ops, "_moe_positions", lambda idx, E: pytest.fail("launched"))
+    ops.reset_counters()
+    with ops.plain_path():
+        assert torch.equal(ops.moe_decode(x, idx, vals, *ws, capacity=4), want)
+    assert ops.plain == ops.counts(moe_decode=1)
+    assert ops.launches == ops.counts()
+    ops.moe_decode(x, idx, vals, *ws, capacity=4)
+    assert ops.launches == ops.counts(moe_decode=1)
+    ops.reset_counters()
+
+
+@pytest.mark.parametrize("B,S,placed,routed", [(1, 1, False, True), (8, 1, False, True),
+                                              (16, 1, False, True), (1, 2, False, False),
+                                              (1, 1, True, False)])
+def test_only_an_unplaced_decode_step_takes_the_decode_kernel(monkeypatch, B, S, placed, routed):
+    """The shape decides: one token a row, at any batch, and an MoE not
+    placed on a mesh; every other call keeps the dense dispatch (and its
+    queue positions)."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import _build, ops
+    from test_torch_kernel_choice import gathered_experts
+
+    def launch(*args):
+        _build.check("moe_decode", 0)
+        return gathered_experts(*args)
+
+    monkeypatch.setattr(ops, "_moe_decode", launch)
+    monkeypatch.setattr(ops, "_on_card", lambda t: t.dtype == torch.float32)
+    jcfg, tcfg = _configs(ARCHS[1], "config")
+    _, tp = _moe_pair(jcfg, tcfg)
+    if placed:
+        monkeypatch.setattr(tp, "tp", sh.TensorParallel(experts=False))
+    x = torch.tensor(_crowded_x(B, S, tcfg.d_model, 3))
+    ops.reset_counters()
+    tmoe.MoE.forward(tp, x)
+    assert ops.launches["moe_decode"] == int(routed)
+    assert (ops.plain["moe_positions"] > 0) == (not routed)
+    ops.reset_counters()
+
+
+def test_the_plan_fills_the_card_from_the_shapes():
+    """``moe_decode.plan`` on 132 SMs at the plans that streamed fastest on
+    the H100 (PERF.md §6): granite-4.0-h at batch 1 up 4 threads a row (240
+    blocks), down 8 in 8 splits (512 blocks); at batch 8 up 8, down 8 whole;
+    granite at batch 1 up 4, down 4 in 8 splits; at batch 8 up 8, down 8 in
+    4 splits. Every plan keeps a split's rows under the shared-memory limit
+    and at least ``MIN_SPLIT_ROWS`` where it splits."""
+    from repro_torch.kernels import moe_decode as kd
+
+    assert kd.plan(1, 10, 4096, 768, 2, 132) == (4, 8, 8)
+    assert kd.plan(8, 10, 4096, 768, 2, 132) == (8, 8, 1)
+    assert kd.plan(1, 8, 1024, 512, 2, 132) == (4, 4, 8)
+    assert kd.plan(8, 8, 1024, 512, 2, 132) == (8, 8, 4)
+    for B in (*range(1, 17), 64, 512):
+        for K, d, d_e, size in ((10, 4096, 768, 2), (8, 1024, 512, 2), (6, 2048, 1408, 4),
+                                (2, 256, 128, 4), (2, 64, 32, 2)):
+            tpr_up, tpr_down, splits = kd.plan(B, K, d, d_e, size, 132)
+            assert tpr_up in (4, 8) and tpr_down in (4, 8) and splits >= 1
+            assert -(-K * d_e // splits) <= kd.MAX_SPLIT_ROWS
+            assert splits == 1 or K * d_e // splits >= kd.MIN_SPLIT_ROWS
+
+
+def test_the_decode_kernel_is_built_and_counted():
+    """``_build`` names the kernel; its kernels carry no name that the
+    benchmark's roofline readers look for (``flash``, ``decode_kernel``,
+    ``ssd_``)."""
+    import re
+
+    from repro_torch.kernels import _build, ops
+
+    assert "moe_decode" in _build.KERNELS and _build.counts()["moe_decode"] == 0
+    assert ops.launches["moe_decode"] == 0 and ops.plain["moe_decode"] == 0
+    src = (_build.CSRC / _build.SOURCES["moe_decode"]).read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", src)
+    assert sorted(names) == ["moe_down_kernel", "moe_sum_kernel", "moe_up_kernel"]
+    assert _build._SIGNATURES["moe_decode"][0] in src
